@@ -8,26 +8,41 @@ exit code:
 
   0. device   -- require CUDA, turn TF32 off, print the card's name and
                  power limit (nvidia-smi);
-  1. build    -- compile the CUDA source under src/repro_torch/kernels/csrc
-                 with nvcc;
+  1. build    -- compile the three CUDA sources under
+                 src/repro_torch/kernels/csrc with nvcc, all at once, and
+                 print each one's register and spill lines;
   2. kernels  -- each kernel's wrapper on the card against its plain PyTorch
                  version on the same inputs: the shape and mask-density sweeps
                  of tests/test_kernels.py, the single-tile mask, and the main
-                 path's own product (2048 sources x the R-MAT adjacency,
-                 integer-valued counts).  Integer inputs must match bit for
-                 bit, float inputs to rtol = atol = 1e-5.  Each kernel is
-                 timed (CUDA events, median of 5) beside its plain version,
-                 torch.matmul at the same shape, and its bound (the masked
-                 product's work counted at the fixed WORK_* granularity);
-  3. main     -- the port's GraphService on R-MAT(16384, 163840, seed 0):
+                 paths' own products (2048 sources x the R-MAT adjacency:
+                 Brandes counts; the first and the widest BFS frontier and
+                 SSSP distance matrix of the batched queries).  count_mm on
+                 float inputs matches to rtol = atol = 1e-5; everything else
+                 bit for bit.  Each kernel is timed (CUDA events, median of 5)
+                 beside its plain version (min-plus on a row subset: its
+                 plain version cannot hold the full width), torch.matmul at
+                 the same shape where one call computes the same function,
+                 and its bound (the masked products' work counted at the
+                 fixed WORK_* granularity);
+  3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
                  mode) that must equal a fresh recompute bit for bit, a delta
                  bc_scores every 8 commits (the ring depth), and a dense-path
-                 bc().  The kernel launch counts of this phase must be > 0.
+                 bc().  The count_mm launch counts of this phase must be > 0.
                  Then the delta trees must equal a cold sweep bit for bit, the
                  scores must match the plain path (use_kernel=False) to 1e-5,
                  and a small graph must match a pure-Python Brandes oracle;
+  3b. batched -- bfs_batched_dense and sssp_batched_dense from 2048 sources
+                 on the same R-MAT state and tile view, dense and masked: the
+                 two must be equal, equal the COO bfs/sssp on 8 sampled
+                 sources, and find no negative cycle; all four bool/min-plus
+                 kernels must launch;
+  3c. workload -- the paper's Section 5 mix (repro_torch.bench.workload,
+                 40/10/50 update/search/query, 45 ops) for BFS, SSSP and BC in
+                 the PG-Cn, PG-Icn and static modes on R-MAT(16384): every
+                 PG-Cn scan must end validated and static mode must launch the
+                 dense kernels;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.
 
@@ -49,6 +64,8 @@ COMMITS, OPS_PER_COMMIT, HOT_FRAC = 16, 24, 0.05
 RING_DEPTH, BATCH_SIZE = 8, 32
 DEV = "cuda"
 FP32_PEAK = 67e12       # H100 SXM FP32 outside the tensor cores, FLOP/s
+FP32_NONFMA = 33.5e12   # the same, one non-FMA FP32 instruction per op, op/s
+INT8_PEAK = 1979e12     # H100 SXM int8 tensor cores (dense), op/s
 HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
 TOL = dict(rtol=1e-5, atol=1e-5)
 # Granularity (rows x cols x k) at which the bound counts the masked
@@ -56,6 +73,18 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernel's block shape, so the bound does not move when the kernel's
 # blocks do.
 WORK_BM, WORK_BN, WORK_BK = 64, 64, 32
+PLAIN_ROWS = 256        # rows of the min-plus products its plain version runs
+N_SAMPLES = 8           # sources of the batched queries held against COO
+WORKLOAD_OPS, WORKLOAD_MIX, UPDATE_BATCH = 45, (0.4, 0.1, 0.5), 8
+KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
+    "count_mm": ("count_mm", "src/repro/kernels/count_mm.py:57"),
+    "count_mm_masked": ("count_mm", "src/repro/kernels/count_mm.py:80"),
+    "bool_mm": ("bool_mm", "src/repro/kernels/bool_mm.py:67"),
+    "bool_mm_masked": ("bool_mm", "src/repro/kernels/bool_mm.py:93"),
+    "minplus_mm": ("minplus_mm", "src/repro/kernels/minplus_mm.py:65"),
+    "minplus_mm_masked": ("minplus_mm",
+                          "src/repro/kernels/minplus_mm.py:88"),
+}
 
 
 def log(*args):
@@ -93,40 +122,47 @@ MASKED = [(64, 256, 192, 64, 0.3), (70, 200, 130, 64, 0.25),
           (16, 96, 96, 16, 1.0)]
 
 
-def sparse_tiled(np, rng, k, n, tile, density):
-    """{0,1} matrix whose ones live in a random subset of tiles."""
-    mat = np.zeros((k, n), np.float32)
+def sparse_tiled(np, rng, k, n, tile, density, identity=0.0):
+    """Matrix whose non-identity entries live in a random subset of tiles:
+    {0,1} for identity 0, values in [0, 0.3) among +inf for identity +inf."""
+    mat = np.full((k, n), identity, np.float32)
     for i in range(-(-k // tile)):
         for j in range(-(-n // tile)):
             if rng.random() < density:
                 r0, c0 = i * tile, j * tile
                 blk = rng.random((min(tile, k - r0), min(tile, n - c0)))
-                mat[r0:r0 + blk.shape[0], c0:c0 + blk.shape[1]] = blk < 0.3
+                live = blk < 0.3
+                vals = blk.astype(np.float32) if identity else 1.0
+                mat[r0:r0 + blk.shape[0], c0:c0 + blk.shape[1]] = np.where(
+                    live, vals, identity)
     return mat
 
 
-def tile_occ(np, mat, tile):
+def tile_occ(np, mat, tile, identity=0.0):
     k, n = mat.shape
     nr, nc = -(-k // tile), -(-n // tile)
-    pad = np.zeros((nr * tile, nc * tile), np.float32)
+    pad = np.full((nr * tile, nc * tile), identity, np.float32)
     pad[:k, :n] = mat
-    return (pad.reshape(nr, tile, nc, tile) != 0).any(axis=(1, 3)).astype(
-        np.int32)
+    blocks = pad.reshape(nr, tile, nc, tile)
+    live = np.isfinite(blocks) if identity else blocks != 0
+    return live.any(axis=(1, 3)).astype(np.int32)
 
 
 class ErrLog:
-    """Largest |kernel - plain| seen per kernel over every comparison."""
+    """Largest |kernel - plain| seen per kernel over every comparison (0
+    where both are the same infinity)."""
 
     def __init__(self):
-        self.max = {"count_mm": 0.0, "count_mm_masked": 0.0}
+        self.max = {name: 0.0 for name in KERNELS}
 
     def check(self, torch, name, got, exp, exact, what):
         torch.cuda.synchronize()
-        err = float((got - exp).abs().max()) if got.numel() else 0.0
+        diff = torch.where(got == exp, 0.0, (got - exp).abs())
+        err = float(diff.max()) if got.numel() else 0.0
         self.max[name] = max(self.max[name], err)
         ok = torch.equal(got, exp) if exact else torch.allclose(got, exp,
                                                                 **TOL)
-        log(f"  {name:16s} {what:40s} max_abs_err={err:.3g} "
+        log(f"  {name:17s} {what:44s} max_abs_err={err:.3g} "
             f"{'bit-exact' if exact else 'allclose 1e-5'}: "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -180,13 +216,122 @@ def sweep_kernels(torch, np, errs):
         raise AssertionError("single-tile contribution lost")
 
 
-def work_masks(x, a):
-    """Which (WORK_BM x WORK_BK) slabs of ``x`` and (WORK_BK x WORK_BN)
-    blocks of ``a`` hold a nonzero entry."""
+def sweep_traversal_kernels(torch, np, errs):
+    """The sweeps of tests/test_kernels.py for the boolean and min-plus
+    products, dense and masked, against their plain versions."""
+    from repro_torch.core import semiring
     from repro_torch.kernels import ops as kops
 
-    return (kops._slab_mask(x, WORK_BM, WORK_BK).bool(),
-            kops._slab_mask(a, WORK_BK, WORK_BN).bool())
+    dev, inf = DEV, float("inf")
+    rng = np.random.default_rng(1)
+
+    def dist(s, k, inf_frac):
+        d = rng.random((s, k)).astype(np.float32) * 9 - 1
+        d[rng.random((s, k)) < inf_frac] = inf
+        return torch.tensor(d, device=dev)
+
+    for s, k, n in SHAPES:
+        f = torch.tensor((rng.random((s, k)) < 0.15).astype(np.float32),
+                         device=dev)
+        a = torch.tensor((rng.random((k, n)) < 0.08).astype(np.float32),
+                         device=dev)
+        errs.check(torch, "bool_mm", kops.bool_mm(f, a),
+                   semiring.bool_mm(f, a, use_kernel=False), True,
+                   f"{s}x{k}x{n}")
+        d, w = dist(s, k, 0.3), dist(k, n, 0.5)
+        errs.check(torch, "minplus_mm", kops.minplus_mm(d, w),
+                   semiring.minplus_mm(d, w, use_kernel=False), True,
+                   f"{s}x{k}x{n}, negative weights")
+    for s, k, n, tile, density in MASKED:
+        what = f"masked {s}x{k}x{n} tile {tile} density {density}"
+        a_np = sparse_tiled(np, rng, k, n, tile, density)
+        a = torch.tensor(a_np, device=dev)
+        f = torch.tensor((rng.random((s, k)) < 0.15).astype(np.float32),
+                         device=dev)
+        am = torch.tensor(tile_occ(np, a_np, tile), device=dev)
+        errs.check(torch, "bool_mm_masked",
+                   kops.bool_mm(f, a, amask=am, tile=tile),
+                   semiring.bool_mm(f, a, use_kernel=False, amask=am,
+                                    tile=tile), True, what)
+        w_np = sparse_tiled(np, rng, k, n, tile, density, identity=inf)
+        w = torch.tensor(w_np, device=dev)
+        d = dist(s, k, 0.5)
+        wm = torch.tensor(tile_occ(np, w_np, tile, identity=inf), device=dev)
+        errs.check(torch, "minplus_mm_masked",
+                   kops.minplus_mm(d, w, amask=wm, tile=tile),
+                   semiring.minplus_mm(d, w, use_kernel=False, amask=wm,
+                                       tile=tile), True, what)
+    # one live tile in the far corner: everything else is skipped
+    tile, k, n, s = 32, 160, 160, 48
+    w_np = np.full((k, n), inf, np.float32)
+    w_np[128:160, 128:160] = 1.0
+    d = torch.full((s, k), inf, device=dev)
+    d[:, 130] = 2.0
+    w = torch.tensor(w_np, device=dev)
+    wm = torch.tensor(tile_occ(np, w_np, tile, identity=inf), device=dev)
+    got = kops.minplus_mm(d, w, amask=wm, tile=tile)
+    errs.check(torch, "minplus_mm_masked", got,
+               semiring.minplus_mm(d, w, use_kernel=False, amask=wm,
+                                   tile=tile), True, "single live tile")
+    f, a = torch.isfinite(d).float(), torch.isfinite(w).float()
+    got_b = kops.bool_mm(f, a, amask=wm, tile=tile)
+    errs.check(torch, "bool_mm_masked", got_b,
+               semiring.bool_mm(f, a, use_kernel=False, amask=wm, tile=tile),
+               True, "single live tile")
+    if not (bool((got[:, 128:160] == 3.0).all())
+            and bool(torch.isinf(got[:, :128]).all())
+            and bool((got_b[:, 128:160] == 1.0).all())):
+        raise AssertionError("single-tile contribution lost")
+    # a slab of nothing but 0.0 distances (SSSP sources) is live for min-plus
+    d = torch.full((128, 64), inf, device=dev)
+    d[:, :16] = 0.0
+    w = dist(64, 64, 0.5)
+    wm = torch.ones((4, 4), dtype=torch.int32, device=dev)
+    errs.check(torch, "minplus_mm_masked", kops.minplus_mm(d, w, amask=wm,
+                                                           tile=16),
+               semiring.minplus_mm(d, w, use_kernel=False), True,
+               "slab of 0.0 distances only")
+
+
+def _nonzero(x):
+    return x != 0
+
+
+def work_masks(x, a, nonidentity=_nonzero):
+    """Which (WORK_BM x WORK_BK) slabs of ``x`` and (WORK_BK x WORK_BN)
+    blocks of ``a`` hold a non-identity entry."""
+    from repro_torch.kernels import ops as kops
+
+    return (kops._slab_mask(x, WORK_BM, WORK_BK, nonidentity).bool(),
+            kops._slab_mask(a, WORK_BK, WORK_BN, nonidentity).bool())
+
+
+class Capture:
+    """Wraps a product: records the first input and the one whose
+    (slab, block) pairs with the right operand are the most, counted at the
+    WORK_* granularity under the semiring's ``nonidentity``."""
+
+    def __init__(self, product, right, nonidentity):
+        from repro_torch.kernels import ops as kops
+
+        self.product, self.nonidentity = product, nonidentity
+        self.right_rows = kops._slab_mask(right, WORK_BK, WORK_BN,
+                                          nonidentity).sum(dim=1).double()
+        self.first = self.wide = None
+        self.wide_level, self.best, self.calls = -1, -1.0, 0
+
+    def __call__(self, x):
+        from repro_torch.kernels import ops as kops
+
+        sm = kops._slab_mask(x, WORK_BM, WORK_BK, self.nonidentity)
+        pairs = float(sm.sum(dim=0).double() @ self.right_rows)
+        if self.first is None:
+            self.first = x.clone()
+        if pairs > self.best:
+            self.best, self.wide, self.wide_level = pairs, x.clone(), \
+                self.calls
+        self.calls += 1
+        return self.product(x)
 
 
 def capture_main_products(torch, state, view):
@@ -196,32 +341,23 @@ def capture_main_products(torch, state, view):
     occupancy and the forward input with the most nonzero block pairs."""
     from repro_torch.core import queries
     from repro_torch.core.tiles import dense_views_from_tiles
-    from repro_torch.kernels import ops as kops
 
     adj_mask, _, alive = dense_views_from_tiles(state, view)
     a = (adj_mask & alive[:, None] & alive[None, :]).float()
-    V = a.shape[0]
-    am_rows = kops._slab_mask(a, WORK_BK, WORK_BN).sum(dim=1).double()
-    best = {"pairs": -1, "x": None}
-
-    def fwd(x):
-        sm = kops._slab_mask(x, WORK_BM, WORK_BK)
-        pairs = float(sm.sum(dim=0).double() @ am_rows)
-        if pairs > best["pairs"]:
-            best.update(pairs=pairs, x=x.clone())
-        return x @ a
-
+    fwd = Capture(lambda x: x @ a, a, _nonzero)
     srcs = torch.arange(SRC_CHUNK, dtype=torch.int32, device=a.device)
-    queries.bc_sweep_ops(fwd, lambda g: g @ a.t(), srcs, alive, V)
-    return a, view.occ, best["x"]
+    queries.bc_sweep_ops(fwd, lambda g: g @ a.t(), srcs, alive, a.shape[0])
+    return a, view.occ, fwd.wide
 
 
-def product_work(x, a):
-    """(FLOPs, bytes) the masked product needs on these inputs, counted at
-    the fixed WORK_* granularity: only the (slab, block) pairs where both
-    operands hold a nonzero, each needed input block read once, the whole
-    output and one int32 occupancy flag per block written/read once."""
-    sm, am = work_masks(x, a)
+def product_work(x, a, nonidentity=_nonzero):
+    """(operations, bytes) the masked product needs on these inputs,
+    counted at the fixed WORK_* granularity: only the (slab, block) pairs
+    where both operands hold a non-identity entry (two operations per
+    term: a multiply and an add, or an add and a min), each needed input
+    block read once, the whole output and one int32 occupancy flag per
+    block written/read once."""
+    sm, am = work_masks(x, a, nonidentity)
     pairs = float(sm.sum(dim=0).double() @ am.sum(dim=1).double())
     s_blocks = float((sm & am.any(dim=1)[None, :]).sum())
     a_blocks = float((am & sm.any(dim=0)[:, None]).sum())
@@ -230,6 +366,31 @@ def product_work(x, a):
     nbytes = 4.0 * (s_blocks * WORK_BM * WORK_BK + a_blocks * WORK_BK
                     * WORK_BN + S * N) + 4.0 * (sm.numel() + am.numel())
     return flops, nbytes
+
+
+def dense_work(S, K, N):
+    """(operations, bytes) of a dense S x K x N semiring product in f32."""
+    return 2.0 * S * K * N, 4.0 * (S * K + K * N + S * N)
+
+
+def kernel_row(torch, name, kern, plain, work, peak, library=None,
+               plain_rows=None):
+    """Time ``kern`` (and ``plain``, ``library``) and bound it by
+    ``work`` = (operations, bytes) at ``peak`` op/s and HBM_RATE."""
+    ops, nbytes = work
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain, reps=3)
+    library_ms = None if library is None else time_ms(torch, library)
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    bound = max(t_ops, t_bytes)
+    lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
+    rows = "" if plain_rows is None else f" on its first {plain_rows} rows"
+    log(f"  {name:17s} kernel {ms:.3f} ms, plain{rows} {plain_ms:.3f} ms, "
+        f"torch.matmul {lib}, bound {bound:.3f} ms ({ops:.4g} op at "
+        f"{peak:.4g} op/s, {nbytes:.4g} B)")
+    return dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, plain_rows=plain_rows,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def main_shape_kernels(torch, state, view, errs):
@@ -241,7 +402,7 @@ def main_shape_kernels(torch, state, view, errs):
     log(f"  main-path product: s {S}x{V} (max count {float(x.max()):.0f}, "
         f"{float((x != 0).float().mean()):.4f} nonzero) x adjacency "
         f"{V}x{V} ({float(occ.gt(0).float().mean()):.4f} of 128-tiles live)")
-    sm = kops._slab_mask(x, kc.BM, kc.BK)
+    sm = kops._slab_mask(x, kc.BM, kc.BK, _nonzero)
     am = kops._coarsen_mask(occ, view.tile, kc.BK, V // kc.BK, kc.BN,
                             V // kc.BN)
     dense_k = kc.count_mm(x, a)
@@ -258,29 +419,100 @@ def main_shape_kernels(torch, state, view, errs):
                "main path, masked == dense")
     del dense_k, dense_p, masked_k, masked_p
 
-    rows = []
-    dense_flops = 2.0 * S * V * V
-    dense_bytes = 4.0 * (S * V + V * V + S * V)
-    mflops, mbytes = product_work(x, a)
-    for name, kern, plain, flops, nbytes in (
-            ("count_mm", lambda: kc.count_mm(x, a),
-             lambda: kc.count_mm_ref(x, a), dense_flops, dense_bytes),
-            ("count_mm_masked", lambda: kc.count_mm_masked(x, a, sm, am),
-             lambda: kc.count_mm_masked_plain(x, a, sm, am), mflops,
-             mbytes)):
-        ms = time_ms(torch, kern)
-        plain_ms = time_ms(torch, plain, reps=3)
-        library_ms = time_ms(torch, lambda: torch.matmul(x, a))
-        t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-        bound = max(t_ops, t_bytes)
-        log(f"  {name:16s} {S}x{V}x{V}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, bound "
-            f"{bound:.3f} ms ({flops:.4g} FLOP, {nbytes:.4g} B)")
-        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound,
-                         bound_by="operations" if t_ops >= t_bytes
-                         else "bytes"))
-    return rows
+    library = lambda: torch.matmul(x, a)  # noqa: E731
+    return [
+        kernel_row(torch, "count_mm", lambda: kc.count_mm(x, a),
+                   lambda: kc.count_mm_ref(x, a), dense_work(S, V, V),
+                   FP32_PEAK, library),
+        kernel_row(torch, "count_mm_masked",
+                   lambda: kc.count_mm_masked(x, a, sm, am),
+                   lambda: kc.count_mm_masked_plain(x, a, sm, am),
+                   product_work(x, a), FP32_PEAK, library)]
+
+
+def main_shape_traversal(torch, state, view, errs):
+    """The batched BFS/SSSP's own products: run both queries once from
+    SRC_CHUNK sources with the dense kernels, capture the first and the
+    widest frontier / distance matrix, and hold the four kernels against
+    their plain versions on them (min-plus's plain versions on the first
+    PLAIN_ROWS rows).  Then time each at the widest input."""
+    from repro_torch.core import queries
+    from repro_torch.core.tiles import dense_views_from_tiles
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import minplus_mm as kmp
+    from repro_torch.kernels import ops as kops
+
+    inf = float("inf")
+    adj, w, alive = dense_views_from_tiles(state, view)
+    V = adj.shape[0]
+    live2 = alive[:, None] & alive[None, :]
+    a = (adj & live2).float()
+    big = torch.where(live2, w, inf)
+    del adj, live2
+    srcs = torch.arange(SRC_CHUNK, dtype=torch.int32, device=DEV)
+    bfs_cap = Capture(kops.bool_mm_against(a), a, _nonzero)
+    queries.bfs_batched_ops(bfs_cap, srcs, alive, V)
+    sssp_cap = Capture(kops.minplus_mm_against(big), big, torch.isfinite)
+    queries.sssp_batched_ops(sssp_cap, srcs, alive, V)
+    S, R = SRC_CHUNK, PLAIN_ROWS
+    log(f"  captured: BFS {bfs_cap.calls} levels (widest frontier at level "
+        f"{bfs_cap.wide_level}, {float((bfs_cap.wide != 0).float().mean()):.4f}"
+        f" nonzero), SSSP {sssp_cap.calls} passes (widest at pass "
+        f"{sssp_cap.wide_level}, "
+        f"{float(torch.isfinite(sssp_cap.wide).float().mean()):.4f} finite)")
+
+    am_b = kops._coarsen_mask(view.occ, view.tile, kb.BK, V // kb.BK, kb.BN,
+                              V // kb.BN)
+    am_m = kops._coarsen_mask(view.occ, view.tile, kmp.BK, V // kmp.BK,
+                              kmp.BN, V // kmp.BN)
+    for label, f in (("first level", bfs_cap.first),
+                     (f"level {bfs_cap.wide_level}", bfs_cap.wide)):
+        fm = kops._slab_mask(f, kb.BM, kb.BK, _nonzero)
+        dense_k = kb.bool_mm(f, a)
+        errs.check(torch, "bool_mm", dense_k, kb.bool_mm_ref(f, a), True,
+                   f"main path {S}x{V}x{V}, {label}")
+        masked_k = kb.bool_mm_masked(f, a, fm, am_b)
+        errs.check(torch, "bool_mm_masked", masked_k,
+                   kb.bool_mm_masked_plain(f, a, fm, am_b), True,
+                   f"main path {S}x{V}x{V}, {label}")
+        errs.check(torch, "bool_mm_masked", masked_k, dense_k, True,
+                   f"main path, {label}, masked == dense")
+    for label, d in (("first pass", sssp_cap.first),
+                     (f"pass {sssp_cap.wide_level}", sssp_cap.wide)):
+        dm = kops._slab_mask(d, kmp.BM, kmp.BK, torch.isfinite)
+        dense_k = kmp.minplus_mm(d, big)
+        errs.check(torch, "minplus_mm", dense_k[:R],
+                   kmp.minplus_mm_plain(d[:R], big), True,
+                   f"main path {S}x{V}x{V}, {label}, rows :{R}")
+        masked_k = kmp.minplus_mm_masked(d, big, dm, am_m)
+        errs.check(torch, "minplus_mm_masked", masked_k[:R],
+                   kmp.minplus_mm_masked_plain(d[:R], big,
+                                               dm[:R // kmp.BM], am_m),
+                   True, f"main path {S}x{V}x{V}, {label}, rows :{R}")
+        errs.check(torch, "minplus_mm_masked", masked_k, dense_k, True,
+                   f"main path, {label}, masked == dense")
+    del dense_k, masked_k
+
+    f, d = bfs_cap.wide, sssp_cap.wide
+    fm = kops._slab_mask(f, kb.BM, kb.BK, _nonzero)
+    dm = kops._slab_mask(d, kmp.BM, kmp.BK, torch.isfinite)
+    dr, dmr = d[:R].contiguous(), dm[:R // kmp.BM]
+    return [
+        kernel_row(torch, "bool_mm", lambda: kb.bool_mm(f, a),
+                   lambda: kb.bool_mm_ref(f, a), dense_work(S, V, V),
+                   INT8_PEAK, lambda: torch.matmul(f, a)),
+        kernel_row(torch, "bool_mm_masked",
+                   lambda: kb.bool_mm_masked(f, a, fm, am_b),
+                   lambda: kb.bool_mm_masked_plain(f, a, fm, am_b),
+                   product_work(f, a), INT8_PEAK, lambda: torch.matmul(f, a)),
+        kernel_row(torch, "minplus_mm", lambda: kmp.minplus_mm(d, big),
+                   lambda: kmp.minplus_mm_plain(dr, big),
+                   dense_work(S, V, V), FP32_NONFMA, plain_rows=R),
+        kernel_row(torch, "minplus_mm_masked",
+                   lambda: kmp.minplus_mm_masked(d, big, dm, am_m),
+                   lambda: kmp.minplus_mm_masked_plain(dr, big, dmr, am_m),
+                   product_work(d, big, torch.isfinite), FP32_NONFMA,
+                   plain_rows=R)]
 
 
 # --------------------------------- phase 3 ---------------------------------
@@ -486,6 +718,128 @@ def main_path(torch, np, state, timings):
     return launches
 
 
+# --------------------------------- phase 3b --------------------------------
+
+def batch_sources(torch, np, state):
+    """SRC_CHUNK sources whose first N_SAMPLES rows are the sampled ones:
+    the highest-degree vertex, vertex 0, a vertex of the hot set, the
+    highest-id vertex with edges, the last vertex, then random vertices."""
+    _, hot_base = commit_stream(np, np.random.default_rng(SEED), N_VERTICES)
+    deg = torch.bincount(state.esrc[state.esrc < N_VERTICES].long(),
+                         minlength=N_VERTICES)
+    picks = [int(deg.argmax())] + query_sources(torch, state, hot_base) + [
+        N_VERTICES - 1]
+    rng = np.random.default_rng(SEED + 1)
+    while len(set(picks)) < N_SAMPLES:
+        picks.append(int(rng.integers(0, N_VERTICES)))
+    samples = list(dict.fromkeys(picks))[:N_SAMPLES]
+    rest = np.setdiff1d(np.arange(N_VERTICES), samples)[:SRC_CHUNK - N_SAMPLES]
+    srcs = torch.tensor(np.concatenate([samples, rest]), dtype=torch.int32,
+                        device=DEV)
+    return srcs, samples
+
+
+def batched_phase(torch, np, state, view, timings):
+    from repro_torch.core import queries
+    from repro_torch.core.tiles import dense_views_from_tiles
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import minplus_mm as kmp
+
+    adj, w, alive = dense_views_from_tiles(state, view)
+    srcs, samples = batch_sources(torch, np, state)
+    log(f"  {SRC_CHUNK} sources; sampled {samples}")
+    kb.reset_launches()
+    kmp.reset_launches()
+    out = {}
+    for label, kw in (("dense", {}),
+                      ("masked", dict(amask=view.occ, tile=view.tile))):
+        for query, fn, arg, mod in (
+                ("bfs", queries.bfs_batched_dense, adj, kb),
+                ("sssp", queries.sssp_batched_dense, w, kmp)):
+            before = sum(mod.LAUNCHES.values())
+            t0 = time.perf_counter()
+            out[query, label] = fn(arg, srcs, alive, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = sum(mod.LAUNCHES.values()) - before
+            timings[f"{query}_batched_dense {label}"] = dt
+            log(f"  {query}_batched_dense {label:6s}: {dt:.3f} s, "
+                f"{steps} {'levels' if query == 'bfs' else 'relax passes'}")
+    launches = {**kb.LAUNCHES, **kmp.LAUNCHES}
+    log(f"  batched-phase kernel launches {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the batched queries never launched {name}")
+
+    bfs_d, bfs_m = out["bfs", "dense"], out["bfs", "masked"]
+    (sd_d, neg_d), (sd_m, neg_m) = out["sssp", "dense"], out["sssp", "masked"]
+    if bfs_d.shape != (SRC_CHUNK, N_VERTICES) or bfs_d.dtype != torch.int32:
+        raise AssertionError("bfs_batched_dense: wrong shape or type")
+    if sd_d.shape != (SRC_CHUNK, N_VERTICES) or neg_d.shape != (SRC_CHUNK,):
+        raise AssertionError("sssp_batched_dense: wrong shape")
+    for what, got, exp in (("bfs dist", bfs_m, bfs_d),
+                           ("sssp dist", sd_m, sd_d),
+                           ("sssp negcycle", neg_m, neg_d)):
+        if not torch.equal(got, exp):
+            raise AssertionError(f"masked {what} != dense {what}")
+    if bool(neg_d.any()):
+        raise AssertionError("a negative cycle found with positive weights")
+    log(f"  masked == dense bit for bit (bfs, sssp, negcycle); no negative "
+        f"cycle; {int((bfs_d >= 0).sum())} reached (source, vertex) pairs, "
+        f"max level {int(bfs_d.max())}, max distance "
+        f"{float(sd_d[torch.isfinite(sd_d)].max()):.0f}")
+    t0 = time.perf_counter()
+    for row, src in enumerate(samples):
+        if not torch.equal(bfs_d[row], queries.bfs(state, src).dist):
+            raise AssertionError(f"batched BFS from {src} != COO bfs")
+        if not torch.equal(sd_d[row], queries.sssp(state, src).dist):
+            raise AssertionError(f"batched SSSP from {src} != COO sssp")
+    torch.cuda.synchronize()
+    timings["COO bfs+sssp on the samples (comparison)"] = \
+        time.perf_counter() - t0
+    log(f"  {len(samples)} sampled sources equal the COO bfs/sssp bit for "
+        f"bit")
+    return launches
+
+
+# --------------------------------- phase 3c --------------------------------
+
+def workload_phase(torch, np, timings):
+    from repro_torch.bench import workload as wl
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import minplus_mm as kmp
+
+    graph = wl.load_graph(N_VERTICES, device=DEV)
+    rng = np.random.default_rng(SEED)
+    kb.reset_launches()
+    kmp.reset_launches()
+    for query in ("bfs", "sssp", "bc"):
+        ops = wl.make_ops(rng, WORKLOAD_OPS, N_VERTICES, WORKLOAD_MIX)
+        for mode in ("pgcn", "pgicn", "static"):
+            before = {**kb.LAUNCHES, **kmp.LAUNCHES}
+            r = wl.run_mix(graph, ops, query, mode,
+                           update_batch=UPDATE_BATCH)
+            used = {k: v - before[k]
+                    for k, v in {**kb.LAUNCHES, **kmp.LAUNCHES}.items()}
+            q = max(r.queries, 1)
+            timings[f"workload {query} {mode}"] = r.seconds
+            log(f"  {query:4s} {mode:6s} {r.queries} queries: "
+                f"{r.seconds / q * 1e3:9.2f} ms/query, collects/scan "
+                f"{r.collects / q:.2f}, interrupts/query {r.interrupts / q:.2f}"
+                f", kernel launches {used}")
+            if r.queries <= 0:
+                raise AssertionError(f"workload {query}/{mode} ran no query")
+            if mode == "pgcn" and r.unvalidated:
+                raise AssertionError(f"{r.unvalidated} PG-Cn {query} scans "
+                                     f"ended unvalidated")
+            dense = {"bfs": "bool_mm", "sssp": "minplus_mm"}.get(query)
+            if mode == "static" and dense and used[dense] <= 0:
+                raise AssertionError(f"static {query} never launched {dense}")
+    launches = {**kb.LAUNCHES, **kmp.LAUNCHES}
+    log(f"  workload-phase kernel launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -512,43 +866,65 @@ def main() -> int:
 
     log("== phase 1: build")
     t0 = time.perf_counter()
-    build.load("count_mm")
+    sources = sorted({src for src, _ in KERNELS.values()})
+    build.load_all(sources)
     timings["build"] = time.perf_counter() - t0
-    text = build.build_logs.get("count_mm", "")
-    regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-    log(f"  count_mm: {regs or 'cached'}")
-    log(f"  build {timings['build']:.2f} s")
+    for src in sources:
+        text = build.build_logs.get(src, "")
+        lines = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"  {src}: {lines or 'cached'}")
+    log(f"  build {timings['build']:.2f} s ({len(sources)} sources at once)")
 
     log("== phase 2: kernels against their plain versions")
     errs = ErrLog()
     t0 = time.perf_counter()
     sweep_kernels(torch, np, errs)
+    sweep_traversal_kernels(torch, np, errs)
     state = load_rmat_graph(N_VERTICES, N_EDGES, seed=SEED, device=DEV)
-    rows = main_shape_kernels(torch, state, build_tile_view(state), errs)
+    view = build_tile_view(state)
+    rows = main_shape_kernels(torch, state, view, errs)
+    torch.cuda.empty_cache()
+    rows += main_shape_traversal(torch, state, view, errs)
     torch.cuda.empty_cache()
     timings["kernels"] = time.perf_counter() - t0
 
-    log("== phase 3: main path")
+    log("== phase 3a: main path (GraphService)")
     t0 = time.perf_counter()
     launches = main_path(torch, np, state, timings)
     small_oracle_check(torch, np)
     timings["main path total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log("== phase 3b: batched BFS/SSSP")
+    t0 = time.perf_counter()
+    batched = batched_phase(torch, np, state, view, timings)
+    timings["batched phase total"] = time.perf_counter() - t0
+    del view
+    torch.cuda.empty_cache()
+
+    log("== phase 3c: workload (PG-Cn / PG-Icn / static)")
+    t0 = time.perf_counter()
+    mix = workload_phase(torch, np, timings)
+    timings["workload phase total"] = time.perf_counter() - t0
+    for name in batched:
+        launches[name] = batched[name] + mix[name]
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 
     log("== phase 4: report")
-    sources = {"count_mm": "src/repro/kernels/count_mm.py:57",
-               "count_mm_masked": "src/repro/kernels/count_mm.py:80"}
     kernels = []
     for row in rows:
         name = row["name"]
+        src, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/count_mm.cu",
-            "replaces": sources[name], "launches": launches[name],
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs.max[name], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "plain_ms": row["plain_ms"], "plain_rows": row["plain_rows"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,12 @@ That is what lets a delta BC answer equal a fresh ``bc_dependencies``
 bit for bit on the card.
 
 The batched-dense variants run the sources at once as semiring products
-(``semiring.py`` / ``repro_torch.kernels``).  ``bc_batched_dense`` is
-ported; ``bfs_batched_dense`` and ``sssp_batched_dense`` wait for their
-kernels (ROADMAP.md).
+(``semiring.py`` / ``repro_torch.kernels``): ``bfs_batched_dense`` one
+boolean product per level, ``sssp_batched_dense`` one min-plus product per
+relax pass, ``bc_batched_dense`` counting products per level.  Each loop
+reads its condition on the host once per level or pass, and each
+``*_batched_ops`` form takes the product as an abstract function, so a
+caller can observe or replace it.
 """
 from __future__ import annotations
 
@@ -346,6 +349,92 @@ def dense_views(state: GraphState):
     """Snapshot -> (adjacency mask, dense weights, alive) for batched queries."""
     w = densify(state)
     return w < INF, w, state.alive
+
+
+# ------------------------ dense batched BFS / SSSP -------------------------
+# The sources at once as semiring products: the card's arithmetic path, and
+# the "static parallel analytics" (Ligra-style) baseline of the paper's
+# study.
+
+def _source_rows(srcs: torch.Tensor, alive: torch.Tensor, V: int):
+    """``one_hot(srcs) * alive[srcs]``: f32 [S, V] with a 1 at each live
+    in-range source (an out-of-range source gives a zero row, as
+    ``jax.nn.one_hot`` does)."""
+    srcs = torch.as_tensor(srcs, device=alive.device).long()
+    srcc = srcs.clamp(0, V - 1)
+    ok = alive[srcc] & (srcs >= 0) & (srcs < V)
+    rows = torch.zeros((srcs.shape[0], V), dtype=torch.float32,
+                       device=alive.device)
+    return rows.scatter_(1, srcc[:, None], ok[:, None].float())
+
+
+def bfs_batched_ops(mm, srcs: torch.Tensor, alive: torch.Tensor, V: int):
+    """Multi-source BFS over an abstract boolean product ``mm(front)``
+    (``front @ A > 0`` as f32 {0,1} for the live adjacency ``A``).
+    Returns ``dist`` int32 [S, V] (-1 = unreached)."""
+    front = _source_rows(srcs, alive, V)
+    dist = torch.where(front > 0, 0, -1).to(torch.int32)
+    lvl = 0
+    while lvl < V and bool((front > 0).any()):
+        newly = (mm(front) > 0) & (dist < 0)
+        dist = torch.where(newly, lvl + 1, dist)
+        front, lvl = newly.float(), lvl + 1
+    return dist
+
+
+def bfs_batched_dense(adj_mask: torch.Tensor, srcs: torch.Tensor,
+                      alive: torch.Tensor, use_kernel=None,
+                      amask: torch.Tensor | None = None, tile: int = 128):
+    """Multi-source BFS over a dense adjacency mask.  Returns dist[S, V].
+
+    One ``bool_mm`` of the frontier against the live adjacency per level.
+    ``amask``: optional tile-occupancy grid of the adjacency (see
+    ``repro_torch.core.tiles``) -- empty tiles are skipped by the product.
+    ``use_kernel`` as in ``semiring.bool_mm``.
+    """
+    V = adj_mask.shape[0]
+    a = (adj_mask & alive[:, None] & alive[None, :]).float()
+    mm = semiring.bool_mm_against(a, use_kernel=use_kernel, amask=amask,
+                                  tile=tile)
+    return bfs_batched_ops(mm, srcs, alive, V)
+
+
+def sssp_batched_ops(mm, srcs: torch.Tensor, alive: torch.Tensor, V: int):
+    """Multi-source Bellman-Ford over an abstract min-plus product
+    ``mm(dist)`` (``min_k dist[:, k] + W[k, :]`` for the live weights).
+    Returns ``(dist f32 [S, V], negcycle bool [S])``.
+
+    The paper's CHECKNEGCYCLE comes from the loop's own exit state: row s
+    of the per-source ``changed`` vector is still True at exit only when
+    the V-th relax pass improved that source's distances, which happens
+    iff a negative cycle is reachable from s.
+    """
+    dist = torch.where(_source_rows(srcs, alive, V) > 0, 0.0, INF)
+    changed = torch.ones((dist.shape[0],), dtype=torch.bool,
+                         device=alive.device)
+    it = 0
+    while it < V and bool(changed.any()):
+        nd = torch.minimum(dist, mm(dist))
+        changed = (nd < dist).any(dim=1)
+        dist, it = nd, it + 1
+    return dist, changed
+
+
+def sssp_batched_dense(w_dense: torch.Tensor, srcs: torch.Tensor,
+                       alive: torch.Tensor, use_kernel=None,
+                       amask: torch.Tensor | None = None, tile: int = 128):
+    """Multi-source Bellman-Ford over dense weights.  Returns
+    ``(dist[S, V], negcycle[S])``.
+
+    One ``minplus_mm`` of the distances against the live weights per relax
+    pass, at most V passes.  ``amask`` and ``use_kernel`` as in
+    ``bfs_batched_dense``.
+    """
+    V = w_dense.shape[0]
+    big = torch.where(alive[:, None] & alive[None, :], w_dense, INF)
+    mm = semiring.minplus_mm_against(big, use_kernel=use_kernel, amask=amask,
+                                     tile=tile)
+    return sssp_batched_ops(mm, srcs, alive, V)
 
 
 # ------------------------- batched Brandes (BC) ---------------------------

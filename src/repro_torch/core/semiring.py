@@ -8,9 +8,10 @@
 ``use_kernel`` selects the hand-written kernel.  Its default (``None``)
 means "the kernel on a CUDA tensor, the plain version on a CPU tensor";
 ``use_kernel=False`` is the plain version, for tests and for comparing a
-kernel with it.  Only ``count_mm`` has a Hopper kernel so far: ``bool_mm``
-and ``minplus_mm`` asked for their kernel on a CUDA tensor raise
-``NotImplementedError`` rather than quietly running the plain version.
+kernel with it.  All three products have Hopper kernels
+(``repro_torch.kernels``: ``bool_mm``, ``minplus_mm``, ``count_mm``, each
+dense and masked).  ``*_against`` prepares a right operand reused across
+many products (one per BFS level, relax pass or BC level).
 
 Each product optionally takes ``amask``, the right operand's
 tile-occupancy grid (nonzero iff the ``tile x tile`` block holds any
@@ -74,10 +75,9 @@ def bool_mm(f: torch.Tensor, a: torch.Tensor, use_kernel=None,
             amask: torch.Tensor | None = None,
             tile: int = _BLOCK) -> torch.Tensor:
     """(S,V) x (V,V) boolean-semiring product, as f32 {0,1} masks."""
-    if _wants_kernel(use_kernel, f) and f.is_cuda:
-        raise NotImplementedError(
-            "bool_mm has no Hopper kernel yet (ROADMAP.md queue 2, items "
-            "1-2); pass use_kernel=False for the plain version")
+    if _wants_kernel(use_kernel, f):
+        from repro_torch.kernels import ops as kops
+        return kops.bool_mm(f, a, amask=amask, tile=tile)
     if amask is None:
         return (f.float() @ a.float() > 0).float()
     acc = _masked_count_accum(f.float(), a.float(), amask, tile, "bool_mm")
@@ -88,10 +88,9 @@ def minplus_mm(d: torch.Tensor, w: torch.Tensor, use_kernel=None,
                amask: torch.Tensor | None = None,
                tile: int = _BLOCK) -> torch.Tensor:
     """(S,V) x (V,V) tropical product: out[s,j] = min_k d[s,k] + w[k,j]."""
-    if _wants_kernel(use_kernel, d) and d.is_cuda:
-        raise NotImplementedError(
-            "minplus_mm has no Hopper kernel yet (ROADMAP.md queue 2, items "
-            "5-6); pass use_kernel=False for the plain version")
+    if _wants_kernel(use_kernel, d):
+        from repro_torch.kernels import ops as kops
+        return kops.minplus_mm(d, w, amask=amask, tile=tile)
     if amask is not None:
         check_amask("minplus_mm", amask.shape, w.shape[0], w.shape[1], tile)
     # Blocked over k to bound the (S, K, V) broadcast working set.
@@ -123,11 +122,28 @@ def count_mm(s: torch.Tensor, a: torch.Tensor, use_kernel=None,
     return _masked_count_accum(s.float(), a.float(), amask, tile, "count_mm")
 
 
-def count_mm_against(a: torch.Tensor, use_kernel=None,
-                     amask: torch.Tensor | None = None, tile: int = _BLOCK):
-    """``s -> count_mm(s, a, ...)`` for a right operand reused by many
-    products: the kernel path prepares ``a`` and its block mask once."""
+def _against(name: str, plain, a: torch.Tensor, use_kernel,
+             amask: torch.Tensor | None, tile: int):
     if _wants_kernel(use_kernel, a):
         from repro_torch.kernels import ops as kops
-        return kops.count_mm_against(a, amask=amask, tile=tile)
-    return lambda s: count_mm(s, a, use_kernel=False, amask=amask, tile=tile)
+        return getattr(kops, f"{name}_against")(a, amask=amask, tile=tile)
+    return lambda x: plain(x, a, use_kernel=False, amask=amask, tile=tile)
+
+
+def bool_mm_against(a: torch.Tensor, use_kernel=None,
+                    amask: torch.Tensor | None = None, tile: int = _BLOCK):
+    """``f -> bool_mm(f, a, ...)`` for an adjacency reused by many
+    products: the kernel path prepares ``a`` and its block mask once."""
+    return _against("bool_mm", bool_mm, a, use_kernel, amask, tile)
+
+
+def minplus_mm_against(w: torch.Tensor, use_kernel=None,
+                       amask: torch.Tensor | None = None, tile: int = _BLOCK):
+    """``d -> minplus_mm(d, w, ...)``, ``w`` prepared once."""
+    return _against("minplus_mm", minplus_mm, w, use_kernel, amask, tile)
+
+
+def count_mm_against(a: torch.Tensor, use_kernel=None,
+                     amask: torch.Tensor | None = None, tile: int = _BLOCK):
+    """``s -> count_mm(s, a, ...)``, ``a`` prepared once."""
+    return _against("count_mm", count_mm, a, use_kernel, amask, tile)

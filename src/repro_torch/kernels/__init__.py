@@ -1,13 +1,19 @@
 """Hand-written Hopper kernels for the port's hot path.
 
+  * ``bool_mm`` / ``bool_mm_masked`` -- boolean-semiring product (BFS
+    frontier expansion, ``bfs_batched_dense``), CUDA C++ in
+    ``csrc/bool_mm.cu``;
+  * ``minplus_mm`` / ``minplus_mm_masked`` -- tropical product (SSSP
+    relaxation, ``sssp_batched_dense``), CUDA C++ in ``csrc/minplus_mm.cu``;
   * ``count_mm`` / ``count_mm_masked`` -- counting-semiring product
     (batched Brandes sigma and dependency flow), CUDA C++ in
-    ``csrc/count_mm.cu``; ``count_mm.py`` holds the ctypes wrapper, the
-    launch counters and the plain PyTorch version side by side.
+    ``csrc/count_mm.cu``.
 
-``ops.py`` holds the padding wrappers, ``ref.py`` the plain oracles,
-``backend.py`` the device dispatch and shape guards, ``build.py`` the nvcc
-build.  The reference's other Pallas kernels (``bool_mm``, ``minplus_mm``,
-``flash_attention``) are not ported yet (ROADMAP.md, queue 2).
+Each ``<name>.py`` holds the ctypes wrapper, the launch counters and the
+plain PyTorch version side by side.  ``ops.py`` holds the padding
+wrappers, ``ref.py`` the plain oracles, ``backend.py`` the device dispatch,
+shape guards and shared helpers, ``build.py`` the nvcc build.  The
+reference's other Pallas kernel (``flash_attention``) is not ported yet
+(ROADMAP.md, queue 2).
 """
 from . import ops, ref  # noqa: F401

@@ -1,4 +1,5 @@
-"""Device dispatch + shared guards for the kernel modules.
+"""Device dispatch, shared guards and the shared launch and plain-version
+helpers of the kernel modules.
 
 The reference switches Pallas into interpret mode off the TPU
 (``repro.kernels.backend.INTERPRET``).  Here the switch is the tensor's
@@ -37,6 +38,69 @@ def check_blocks(name: str, s: int, kdim: int, n: int,
             f"multiples of blocks (bm={bm}, bk={bk}, bn={bn}); grid "
             "truncation would drop trailing rows/columns — pad the operands "
             f"(repro_torch.kernels.ops.{name} does) or pass dividing blocks")
+
+
+def check_operands(name: str, x: torch.Tensor, a: torch.Tensor,
+                   bm: int, bk: int, bn: int):
+    """A raw kernel entry point's operand guard: 2-D float32 ``x @ a``
+    whose shapes are block multiples.  Returns ``(m, kdim, n)``."""
+    if x.dim() != 2 or a.dim() != 2 or x.shape[1] != a.shape[0]:
+        raise ValueError(f"{name}: bad operand shapes {tuple(x.shape)} x "
+                         f"{tuple(a.shape)}")
+    if x.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"{name}: operands must be float32, got "
+                         f"{x.dtype}/{a.dtype}")
+    m, kdim = x.shape
+    n = a.shape[1]
+    check_blocks(name, m, kdim, n, bm, bk, bn)
+    return m, kdim, n
+
+
+def check_masks(name: str, xmask: torch.Tensor, amask: torch.Tensor,
+                grid) -> None:
+    """The masked kernels' block masks must match the block grid
+    ``(m / BM, n / BN, k / BK)``."""
+    if (tuple(xmask.shape) != (grid[0], grid[2])
+            or tuple(amask.shape) != (grid[2], grid[1])):
+        raise ValueError(
+            f"{name}: mask shapes {tuple(xmask.shape)}/"
+            f"{tuple(amask.shape)} do not match the block grid "
+            f"({grid[0]}, {grid[2]})/({grid[2]}, {grid[1]})")
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call a C launcher on PyTorch's current stream; raise if the launch
+    was refused (it returns the launch's ``cudaError_t``)."""
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")
+
+
+def masked_plain(x: torch.Tensor, a: torch.Tensor, xmask: torch.Tensor,
+                 amask: torch.Tensor, blocks, init: float,
+                 step) -> torch.Tensor:
+    """A masked kernel's function in plain PyTorch, block for block.
+
+    ``blocks`` = (BM, BN, BK).  The output starts at ``init`` (the
+    semiring's identity); for each k-step ``kb`` of BK, exactly the output
+    tiles whose ``xmask[i, kb] & amask[kb, j]`` holds become
+    ``step(out, x[:, ks], a[ks, :])`` -- the kernel's skip, so the plain
+    version stays equal to the kernel even for masks that are not
+    conservative.
+    """
+    bm, bn, bk = blocks
+    out = torch.full((x.shape[0], a.shape[1]), init, dtype=torch.float32,
+                     device=x.device)
+    xm = xmask != 0
+    am = amask != 0
+    steps = (xm.any(dim=0) & am.any(dim=1)).nonzero().flatten().tolist()
+    for kb in steps:
+        act = xm[:, kb, None] & am[None, kb, :]           # [m/BM, n/BN]
+        act = act.repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+        ks = slice(kb * bk, (kb + 1) * bk)
+        out = torch.where(act, step(out, x[:, ks], a[ks, :]), out)
+    return out
 
 
 def check_amask(name: str, amask_shape, kdim: int, n: int, tile: int) -> None:

@@ -5,7 +5,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles alone with
 directory is git-ignored), keyed by a hash of the source and the flags, so
 an edited source rebuilds and an unchanged one loads the cached library.
 Builds happen at first use, inside the call that launches a kernel, never
-at import.
+at import; ``load_all`` starts one ``nvcc`` per source at once.
+
+Every source exports the same three C entry points, which ``bind`` types:
+``<name>_block_shape(int*)``, ``<name>(x, a, out, m, k, n, stream)`` and
+``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``.
 """
 from __future__ import annotations
 
@@ -22,7 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+_bound: dict = {}
 build_logs: dict = {}  # {name: nvcc output} for the sources built here
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
 def _nvcc() -> str:
@@ -43,28 +51,71 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _build(name: str) -> None:
-    """Compile ``csrc/<name>.cu`` unless its library is already cached."""
+def _start(name: str):
+    """Start compiling ``csrc/<name>.cu`` unless its library is cached:
+    ``None``, or ``(process, temporary path)``."""
     out = library_path(name)
     if out.exists():
-        return
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp = job
+    text, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    build_logs[name] = proc.stdout
+                           f"(exit {proc.returncode}):\n{text}")
+    os.replace(tmp, library_path(name))  # atomic: all or nothing
+    build_logs[name] = text
+
+
+def load_all(names) -> None:
+    """Build every named source that is not cached, all ``nvcc``s at once."""
+    jobs = {name: _start(name) for name in names if name not in _loaded}
+    try:
+        for name, job in jobs.items():
+            _finish(name, job)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        _build(name)
+        load_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+    return lib
+
+
+def bind(name: str, blocks) -> ctypes.CDLL:
+    """``load(name)`` with its entry points typed, after checking that the
+    library's block shape is the wrapper's ``blocks`` = (BM, BN, BK)."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = load(name)
+        shape_fn = getattr(lib, f"{name}_block_shape")
+        shape_fn.argtypes = [ctypes.POINTER(_I)]
+        shape_fn.restype = None
+        shape = (_I * 3)()
+        shape_fn(shape)
+        if tuple(shape) != tuple(blocks):
+            raise RuntimeError(f"csrc/{name}.cu blocks {tuple(shape)} != "
+                               f"the wrapper's {tuple(blocks)}")
+        dense, masked = getattr(lib, name), getattr(lib, f"{name}_masked")
+        dense.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        masked.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+        dense.restype = masked.restype = _I
+        _bound[name] = lib
     return lib

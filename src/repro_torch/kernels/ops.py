@@ -1,25 +1,34 @@
 """Padded public wrappers around the Hopper kernels (port of
 ``repro.kernels.ops``).
 
-``count_mm`` takes any ``(S, V) x (V, V')`` shapes: it zero-pads the
-operands up to the CUDA kernel's block shape (zero is the counting
-semiring's identity), dispatches, and slices the padding back off.
+``bool_mm``, ``minplus_mm`` and ``count_mm`` take any ``(S, V) x (V, V')``
+shapes: they pad the operands up to the CUDA kernel's block shape with the
+semiring's identity (0 for the boolean and counting products, +inf for
+min-plus), dispatch, and slice the padding back off.
 
 With ``amask`` -- the tile-occupancy grid of the right operand at ``tile``
-granularity (see ``repro_torch.core.tiles``) -- it dispatches to the
+granularity (see ``repro_torch.core.tiles``) -- they dispatch to the
 tile-skipping kernel: the grid is coarsened to the CUDA kernel's
-``(BK, BN)`` block grid (not to the Pallas kernel's 128/512 blocks), the
-left operand's slab mask is derived from the operand itself (frontier
-slabs go all-zero as the BC levels saturate), and the kernel skips every
-(slab, tile) pair whose contribution is zero.
+``(BK, BN)`` block grid (not to the Pallas kernel's blocks), the left
+operand's slab mask is derived from the operand itself (frontier slabs go
+all-identity as the BFS/SSSP/BC levels saturate), and the kernel skips
+every (slab, block) pair whose contribution is the identity.
+
+``*_against(a, ...)`` prepares a right operand that stays fixed across many
+products (one per BFS level, relax pass or BC level): it is padded and its
+mask coarsened once, not per product.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import bool_mm as _bool
 from . import count_mm as _count
+from . import minplus_mm as _minplus
 from .backend import check_amask
 
 
@@ -46,7 +55,7 @@ def _coarsen_mask(occ: torch.Tensor, tile: int, blk_r: int, nbr: int,
     Works for any (tile, block) size relation via prefix sums over the tile
     grid gathered at the block -> tile ranges.  Blocks that extend past the
     tile grid (operand padding) clip to the last tile -- at worst an
-    all-zero block is marked active, never the reverse.
+    all-identity block is marked active, never the reverse.
     """
     dev = occ.device
     occ_b = (occ > 0).to(torch.int32)
@@ -63,36 +72,89 @@ def _coarsen_mask(occ: torch.Tensor, tile: int, blk_r: int, nbr: int,
     return ((cum_c[:, c1 + 1] - cum_c[:, c0]) > 0).to(torch.int32)
 
 
-def _slab_mask(xp: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
-    """Blockwise any(nonzero) over a padded left operand."""
+def _slab_mask(xp: torch.Tensor, bm: int, bk: int,
+               nonidentity) -> torch.Tensor:
+    """Blockwise any(non-identity) over a padded left operand.
+
+    ``nonidentity`` is the semiring's test, as in the reference: ``!= 0``
+    for the boolean and counting products, ``torch.isfinite`` for min-plus
+    (whose identity is +inf, so a slab of ``0.0`` distances is live)."""
     mp, kp = xp.shape
-    return (xp != 0).view(mp // bm, bm, kp // bk, bk).any(dim=3).any(
+    return nonidentity(xp).view(mp // bm, bm, kp // bk, bk).any(dim=3).any(
         dim=1).to(torch.int32)
+
+
+def _nonzero(x: torch.Tensor) -> torch.Tensor:
+    return x != 0
+
+
+def _against(kern, name: str, identity: float, nonidentity,
+             a: torch.Tensor, amask: torch.Tensor | None, tile: int):
+    """``x -> name(x, a)`` through ``kern``'s dense or masked entry point,
+    with ``a`` padded and ``amask`` coarsened to the kernel's blocks once."""
+    bm, bn, bk = kern.BM, kern.BN, kern.BK
+    ap, (_, n) = _pad2(a.float(), bk, bn, identity)
+    dense = getattr(kern, name)
+    masked = getattr(kern, f"{name}_masked")
+    am = None
+    if amask is not None:
+        check_amask(name, amask.shape, a.shape[0], a.shape[1], tile)
+        am = _coarsen_mask(amask, tile, bk, ap.shape[0] // bk, bn,
+                           ap.shape[1] // bn)
+
+    def product(x: torch.Tensor) -> torch.Tensor:
+        xp, (m, _) = _pad2(x.float(), bm, bk, identity)
+        if am is None:
+            out = dense(xp, ap)
+        else:
+            out = masked(xp, ap, _slab_mask(xp, bm, bk, nonidentity), am)
+        return out if out.shape == (m, n) else out[:m, :n]
+
+    return product
+
+
+def bool_mm_against(a: torch.Tensor, amask: torch.Tensor | None = None,
+                    tile: int = 128):
+    """``f -> bool_mm(f, a, amask, tile)`` for an adjacency reused across
+    the BFS levels."""
+    return _against(_bool, "bool_mm", 0.0, _nonzero, a, amask, tile)
+
+
+def minplus_mm_against(w: torch.Tensor, amask: torch.Tensor | None = None,
+                       tile: int = 128):
+    """``d -> minplus_mm(d, w, amask, tile)`` for weights reused across the
+    relax passes."""
+    return _against(_minplus, "minplus_mm", math.inf, torch.isfinite, w,
+                    amask, tile)
 
 
 def count_mm_against(a: torch.Tensor, amask: torch.Tensor | None = None,
                      tile: int = 128):
-    """``s -> count_mm(s, a, amask, tile)`` for a right operand that stays
-    fixed across many products (one per BC level): ``a`` is padded and
-    ``amask`` coarsened to the kernel's block grid once, not per product.
+    """``s -> count_mm(s, a, amask, tile)`` for a right operand reused
+    across the BC levels."""
+    return _against(_count, "count_mm", 0.0, _nonzero, a, amask, tile)
+
+
+def bool_mm(f: torch.Tensor, a: torch.Tensor,
+            amask: torch.Tensor | None = None,
+            tile: int = 128) -> torch.Tensor:
+    """Padded boolean-semiring matmul; zero padding is the identity.
+
+    ``amask``: optional tile-occupancy grid of ``a`` (nonzero iff the
+    ``tile`` x ``tile`` block holds any set bit) enabling tile skipping.
     """
-    bm, bn, bk = _count.BM, _count.BN, _count.BK
-    ap, (_, n) = _pad2(a.float(), bk, bn)
-    am = None
-    if amask is not None:
-        check_amask("count_mm", amask.shape, a.shape[0], a.shape[1], tile)
-        am = _coarsen_mask(amask, tile, bk, ap.shape[0] // bk, bn,
-                           ap.shape[1] // bn)
+    return bool_mm_against(a, amask=amask, tile=tile)(f)
 
-    def product(s: torch.Tensor) -> torch.Tensor:
-        sp, (m, _) = _pad2(s.float(), bm, bk)
-        if am is None:
-            out = _count.count_mm(sp, ap)
-        else:
-            out = _count.count_mm_masked(sp, ap, _slab_mask(sp, bm, bk), am)
-        return out if out.shape == (m, n) else out[:m, :n]
 
-    return product
+def minplus_mm(d: torch.Tensor, w: torch.Tensor,
+               amask: torch.Tensor | None = None,
+               tile: int = 128) -> torch.Tensor:
+    """Padded tropical matmul; +inf padding is the semiring identity.
+
+    ``amask``: optional tile-occupancy grid of ``w`` (nonzero iff the
+    ``tile`` x ``tile`` block holds any finite weight).
+    """
+    return minplus_mm_against(w, amask=amask, tile=tile)(d)
 
 
 def count_mm(s: torch.Tensor, a: torch.Tensor,

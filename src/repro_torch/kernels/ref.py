@@ -12,7 +12,10 @@ def bool_mm_ref(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 
 def minplus_mm_ref(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Tropical matmul: out[s, j] = min_k d[s, k] + w[k, j]."""
+    """Tropical matmul: out[s, j] = min_k d[s, k] + w[k, j].
+
+    Broadcasts the whole ``S x K x N`` sum: small shapes only (the kernel
+    module's ``minplus_mm_plain`` works k-step by k-step)."""
     return torch.amin(d[:, :, None] + w[None, :, :], dim=1)
 
 

@@ -11,19 +11,26 @@ import pytest
 import torch
 
 import repro_torch.core.semiring as tsem
+import repro_torch.kernels.bool_mm as tbool
 import repro_torch.kernels.count_mm as tcount
+import repro_torch.kernels.minplus_mm as tmin
 import repro_torch.kernels.ops as tops
 
 SHAPES = [(128, 128, 128), (70, 200, 130), (1, 512, 64), (256, 64, 256)]
 
 
-def _tile_occ(a, tile):
+def _tile_occ(a, tile, identity=0.0):
     k, n = a.shape
     nt_r, nt_c = -(-k // tile), -(-n // tile)
-    pad = np.zeros((nt_r * tile, nt_c * tile), np.float32)
+    pad = np.full((nt_r * tile, nt_c * tile), identity, np.float32)
     pad[:k, :n] = a
-    return (pad.reshape(nt_r, tile, nt_c, tile) != 0).any(axis=(1, 3)).astype(
-        np.int32)
+    blocks = pad.reshape(nt_r, tile, nt_c, tile)
+    live = np.isfinite(blocks) if np.isinf(identity) else blocks != 0
+    return live.any(axis=(1, 3)).astype(np.int32)
+
+
+def _minplus_np(d, w):
+    return np.min(d[:, :, None] + w[None, :, :], axis=1)
 
 
 @pytest.fixture
@@ -51,7 +58,79 @@ def test_cuda_kernels_match_plain(cuda_device, s, k, n):
     assert np.array_equal(got_m.cpu().numpy(), f @ a)
     assert tcount.LAUNCHES["count_mm"] == before["count_mm"] + 1
     assert tcount.LAUNCHES["count_mm_masked"] == before["count_mm_masked"] + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsem.bool_mm(fc, ac)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsem.minplus_mm(fc, ac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k,n", SHAPES)
+def test_cuda_bool_mm_matches_plain(cuda_device, s, k, n):
+    rng = np.random.default_rng(3 * s + k + n)
+    f = (rng.random((s, k)) < 0.1).astype(np.float32)
+    a = (rng.random((k, n)) < 0.1).astype(np.float32)
+    a[:, : n // 3] = 0.0  # a band of empty tiles to skip
+    fc = torch.tensor(f, device=cuda_device)
+    ac = torch.tensor(a, device=cuda_device)
+    amask = torch.tensor(_tile_occ(a, 32), device=cuda_device)
+    before = dict(tbool.LAUNCHES)
+    got = tops.bool_mm(fc, ac)
+    got_m = tops.bool_mm(fc, ac, amask=amask, tile=32)
+    torch.cuda.synchronize()
+    assert tbool.LAUNCHES["bool_mm"] == before["bool_mm"] + 1
+    assert tbool.LAUNCHES["bool_mm_masked"] == before["bool_mm_masked"] + 1
+    exp = ((f @ a) > 0).astype(np.float32)
+    assert np.array_equal(got.cpu().numpy(), exp)
+    assert np.array_equal(got_m.cpu().numpy(), exp)
+    plain = tsem.bool_mm(fc, ac, use_kernel=False, amask=amask, tile=32)
+    assert torch.equal(got_m, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k,n", SHAPES)
+def test_cuda_minplus_mm_matches_plain(cuda_device, s, k, n):
+    rng = np.random.default_rng(5 * s + k + n)
+    d = rng.random((s, k)).astype(np.float32) * 8 - 1
+    d[rng.random((s, k)) < 0.4] = np.inf
+    w = rng.random((k, n)).astype(np.float32) * 5 - 1
+    w[rng.random((k, n)) < 0.7] = np.inf
+    w[:, : n // 3] = np.inf  # a band of empty tiles to skip
+    dc = torch.tensor(d, device=cuda_device)
+    wc = torch.tensor(w, device=cuda_device)
+    amask = torch.tensor(_tile_occ(w, 32, np.inf), device=cuda_device)
+    before = dict(tmin.LAUNCHES)
+    got = tops.minplus_mm(dc, wc)
+    got_m = tops.minplus_mm(dc, wc, amask=amask, tile=32)
+    torch.cuda.synchronize()
+    assert tmin.LAUNCHES["minplus_mm"] == before["minplus_mm"] + 1
+    assert (tmin.LAUNCHES["minplus_mm_masked"]
+            == before["minplus_mm_masked"] + 1)
+    exp = _minplus_np(d, w)
+    assert np.array_equal(got.cpu().numpy(), exp)
+    assert np.array_equal(got_m.cpu().numpy(), exp)
+    assert np.isposinf(got_m.cpu().numpy()[:, : n // 3]).all()
+    plain = tsem.minplus_mm(dc, wc, use_kernel=False, amask=amask, tile=32)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod,name,identity", [
+    (tbool, "bool_mm", 0.0), (tmin, "minplus_mm", float("inf"))])
+def test_cuda_masked_kernels_skip_block_for_block(cuda_device, mod, name,
+                                                  identity):
+    """Raw masked entry points with a deliberately wrong mask equal the
+    masked plain version, which skips exactly the same blocks."""
+    bm, bn, bk = mod.BM, mod.BN, mod.BK
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = (torch.rand((2 * bm, 3 * bk), generator=g) < 0.3).float()
+    a = (torch.rand((3 * bk, 2 * bn), generator=g) < 0.3).float()
+    if name == "minplus_mm":
+        x = torch.where(x > 0, torch.rand(x.shape, generator=g), identity)
+        a = torch.where(a > 0, torch.rand(a.shape, generator=g), identity)
+    xm = torch.ones((2, 3), dtype=torch.int32)
+    am = torch.ones((3, 2), dtype=torch.int32)
+    xm[1, 2] = 0
+    am[:, 1] = 0  # output column block 1 skipped entirely
+    args = [t.to(cuda_device) for t in (x, a, xm, am)]
+    got = getattr(mod, f"{name}_masked")(*args)
+    exp = getattr(mod, f"{name}_masked_plain")(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+    assert bool((got[:, bn:] == identity).all())

@@ -1,5 +1,5 @@
 """Isolation guards for the port: it imports neither JAX nor the reference
-package, and without CUDA it refuses to build state anywhere but where the
+package nor anything under ``benchmarks/``, and without CUDA it refuses to build state anywhere but where the
 caller asked."""
 import os
 import subprocess
@@ -12,15 +12,17 @@ import torch
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 _IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules
+bench = os.sep + "benchmarks" + os.sep
+bad = sorted(m for m, mod in sys.modules.items()
              if m == "jax" or m.startswith("jax.") or m == "repro"
-             or m.startswith("repro."))
+             or m.startswith("repro.")
+             or bench in (getattr(mod, "__file__", None) or ""))
 print(len(names), bad)
 """
 

@@ -130,7 +130,8 @@ def test_coarsen_and_slab_masks_match_reference(blocks):
     x = (rng.random((4 * blk_r, 3 * blk_c)) < 0.05).astype(np.float32)
     exp_s = np.asarray(jops._slab_mask(jnp.asarray(x), blk_r, blk_c,
                                        lambda v: v != 0))
-    assert np.array_equal(tops._slab_mask(_t(x), blk_r, blk_c).numpy(),
+    assert np.array_equal(tops._slab_mask(_t(x), blk_r, blk_c,
+                                          lambda v: v != 0).numpy(),
                           exp_s)
 
 

@@ -3,20 +3,27 @@
 
     python3 tools/profile_port.py
 
-Replays ``chip_smoke.py``'s main-path traffic with that script's own
-constants and helpers: the same R-MAT GraphService, a cold all-vertex
-``bc_scores``, then the first ``RING_DEPTH`` batches of its commit stream,
-each followed by its BFS/SSSP/BC queries.  Then it profiles, with
-``torch.profiler`` (CPU + CUDA activities):
+Replays ``chip_smoke.py``'s traffic with that script's own constants and
+helpers: the same R-MAT GraphService, a cold all-vertex ``bc_scores``,
+then the first ``RING_DEPTH`` batches of its commit stream, each followed
+by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
+(CPU + CUDA activities):
 
   * ``bc_scores delta`` -- the delta ``bc_scores`` call the smoke makes
     after those commits;
-  * ``ladder round``   -- the stream's next batch and its nine queries.
+  * ``ladder round``   -- the stream's next batch and its nine queries;
+  * ``sssp_batched_dense masked`` -- one batched SSSP at the batched
+    phase's shape (``SRC_CHUNK`` sources of the initial R-MAT state, the
+    tile view's occupancy as the mask).
 
 For each window it prints the host wall time, the summed device time of
 every kernel, the device busy share (device time / wall; the profiler's
 own host overhead lengthens the wall), and the kernels that take the most
-device time, then one JSON line with the same numbers.
+device time, then one JSON line with the same numbers.  For the SSSP call
+it also counts the host's reads of device values per relax pass, in a
+second, unprofiled run of the same call under
+``torch.cuda.set_sync_debug_mode("warn")`` (each synchronising read warns
+once).
 It needs CUDA and exits nonzero without it.
 """
 import json
@@ -65,6 +72,22 @@ def profile_window(torch, name, fn, top=8):
                     for k, c, us in rows[:top]]}
 
 
+def host_reads(torch, fn) -> int:
+    """Synchronising device-to-host reads while ``fn`` runs."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def main() -> int:
     import torch
 
@@ -75,8 +98,11 @@ def main() -> int:
     import numpy as np
 
     import chip_smoke as smoke
+    from repro_torch.core import queries
+    from repro_torch.core.tiles import build_tile_view, dense_views_from_tiles
     from repro_torch.data import load_rmat_graph
     from repro_torch.engine import GraphService
+    from repro_torch.kernels import minplus_mm as kmp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -101,6 +127,24 @@ def main() -> int:
                           lambda: smoke.ladder_round(svc, stream[nxt],
                                                      sources, nxt))]
     print(f"  bc_scores modes {svc.bc_scores_stats}; ladder {vars(svc.stats)}")
+
+    view = build_tile_view(state)
+    _, w, alive = dense_views_from_tiles(state, view)
+    srcs, _ = smoke.batch_sources(torch, np, state)
+
+    def sssp():
+        return queries.sssp_batched_dense(w, srcs, alive, amask=view.occ,
+                                          tile=view.tile)
+
+    sssp()  # warm: the kernel's first launch loads its module
+    out.append(profile_window(torch, "sssp_batched_dense masked", sssp))
+    before = kmp.LAUNCHES["minplus_mm_masked"]
+    reads = host_reads(torch, sssp)
+    passes = kmp.LAUNCHES["minplus_mm_masked"] - before
+    out[-1].update(passes=passes, host_reads=reads,
+                   host_reads_per_pass=reads / max(passes, 1))
+    print(f"  {passes} relax passes, {reads} synchronising host reads "
+          f"({reads / max(passes, 1):.2f} per pass)", flush=True)
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
     return 0
