@@ -8,7 +8,7 @@ exit code:
 
   0. device   -- require CUDA, turn TF32 off, print the card's name and
                  power limit (nvidia-smi);
-  1. build    -- compile the three CUDA sources under
+  1. build    -- compile the four CUDA sources under
                  src/repro_torch/kernels/csrc with nvcc, all at once, and
                  print each one's register and spill lines;
   2. kernels  -- each kernel's wrapper on the card against its plain PyTorch
@@ -16,9 +16,12 @@ exit code:
                  of tests/test_kernels.py, the single-tile mask, and the main
                  paths' own products (2048 sources x the R-MAT adjacency:
                  Brandes counts; the first and the widest BFS frontier and
-                 SSSP distance matrix of the batched queries).  count_mm on
-                 float inputs matches to rtol = atol = 1e-5; everything else
-                 bit for bit.  Each kernel is timed (CUDA events, median of 5)
+                 SSSP distance matrix of the batched queries), and
+                 flash_attention over the attention sweeps of
+                 tests/test_kernels.py plus head_dim 64 and 128, in f32 and
+                 bf16.  count_mm on float inputs matches to rtol = atol =
+                 1e-5, flash_attention as FLASH_TOL states; everything else
+                 bit for bit.  Each product is timed (CUDA events, median of 5)
                  beside its plain version (min-plus on a row subset: its
                  plain version cannot hold the full width), torch.matmul at
                  the same shape where one call computes the same function,
@@ -43,6 +46,20 @@ exit code:
                  the PG-Cn, PG-Icn and static modes on R-MAT(16384): every
                  PG-Cn scan must end validated and static mode must launch the
                  dense kernels;
+  3d. LM serving -- the port's serve entry point (repro_torch.launch.serve)
+                 on mistral_nemo_12b (40 layers, d 5120, bf16, 12.2 B
+                 parameters) and granite_moe_1b (24 layers, 32 experts top-8)
+                 at full width and depth, random weights from seed 0: batch
+                 4, prompt 2048, 32 generated tokens.  Each prefill must
+                 launch flash_attention once per layer.  Then, per model:
+                 the kernel against its plain version on layer 0's own
+                 q/k/v (and timed there beside SDPA); the prefill's logits
+                 against the port's "xla" attention path on the same
+                 weights; the last decode step's logits against a fresh
+                 "xla" prefill of prompt + generated tokens (LM_REL_TOL;
+                 for the MoE model one decode step at a capacity that
+                 drops nothing, since the served decode's capacity of 1
+                 drops pairs a prefill keeps);
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.
 
@@ -66,6 +83,7 @@ DEV = "cuda"
 FP32_PEAK = 67e12       # H100 SXM FP32 outside the tensor cores, FLOP/s
 FP32_NONFMA = 33.5e12   # the same, one non-FMA FP32 instruction per op, op/s
 INT8_PEAK = 1979e12     # H100 SXM int8 tensor cores (dense), op/s
+BF16_PEAK = 989e12      # H100 SXM bf16 tensor cores (dense), FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
 TOL = dict(rtol=1e-5, atol=1e-5)
 # Granularity (rows x cols x k) at which the bound counts the masked
@@ -84,7 +102,36 @@ KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
     "minplus_mm": ("minplus_mm", "src/repro/kernels/minplus_mm.py:65"),
     "minplus_mm_masked": ("minplus_mm",
                           "src/repro/kernels/minplus_mm.py:88"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:88"),
 }
+# flash_attention against its plain version: f32 to 3e-5 (summation order);
+# bf16 to one bf16 rounding step (both compute in f32 and round the output
+# once, so they differ only where the f32 values straddle a rounding
+# boundary).
+FLASH_TOL = {"float32": dict(rtol=0.0, atol=3e-5),
+             "bfloat16": dict(rtol=2**-7, atol=1e-5)}
+# (b, hq, hkv, sq, skv, d, causal, window): tests/test_kernels.py's sweeps
+# and the window / non-causal / ragged corners, at head_dims 16 to 128.
+FLASH_SWEEP = [(1, 4, 4, 32, 32, 16, True, None),
+               (2, 4, 2, 37, 53, 16, True, None),
+               (1, 8, 1, 16, 64, 32, True, None),
+               (2, 2, 2, 1, 40, 16, True, None),
+               (1, 2, 2, 24, 40, 16, False, None),
+               (1, 2, 2, 48, 48, 16, True, 8),
+               (1, 4, 2, 100, 100, 32, False, 20),
+               (2, 16, 8, 300, 300, 64, True, None),
+               (1, 32, 8, 257, 513, 128, True, None),
+               (2, 8, 2, 130, 70, 64, True, 40)]
+LM_ARCHS = ("mistral_nemo_12b", "granite_moe_1b")
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# Two bf16 forward passes that differ only in where they round (the flash
+# kernel keeps the probabilities in f32, the "xla" path rounds them to
+# bf16; a decode step and a prefill sum their products in other orders)
+# agree on the logits to a relative L2 error of about sqrt(layers x
+# roundings per layer) x 2^-9; the bound allows 5e-2 (logits of two
+# different prompts differ by about 1.4).
+LM_REL_TOL = 5e-2
 
 
 def log(*args):
@@ -155,15 +202,21 @@ class ErrLog:
     def __init__(self):
         self.max = {name: 0.0 for name in KERNELS}
 
-    def check(self, torch, name, got, exp, exact, what):
+    def check(self, torch, name, got, exp, exact, what, tol=TOL):
         torch.cuda.synchronize()
+        if got.dtype != exp.dtype or got.shape != exp.shape:
+            raise AssertionError(f"{name} on {what}: {got.dtype} "
+                                 f"{tuple(got.shape)} != plain {exp.dtype} "
+                                 f"{tuple(exp.shape)}")
+        got, exp = got.float(), exp.float()
         diff = torch.where(got == exp, 0.0, (got - exp).abs())
         err = float(diff.max()) if got.numel() else 0.0
         self.max[name] = max(self.max[name], err)
         ok = torch.equal(got, exp) if exact else torch.allclose(got, exp,
-                                                                **TOL)
-        log(f"  {name:17s} {what:44s} max_abs_err={err:.3g} "
-            f"{'bit-exact' if exact else 'allclose 1e-5'}: "
+                                                                **tol)
+        how = "bit-exact" if exact else (
+            f"allclose rtol={tol['rtol']:.3g} atol={tol['atol']:.3g}")
+        log(f"  {name:17s} {what:44s} max_abs_err={err:.3g} {how}: "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
@@ -386,7 +439,7 @@ def kernel_row(torch, name, kern, plain, work, peak, library=None,
     lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
     rows = "" if plain_rows is None else f" on its first {plain_rows} rows"
     log(f"  {name:17s} kernel {ms:.3f} ms, plain{rows} {plain_ms:.3f} ms, "
-        f"torch.matmul {lib}, bound {bound:.3f} ms ({ops:.4g} op at "
+        f"library {lib}, bound {bound:.3f} ms ({ops:.4g} op at "
         f"{peak:.4g} op/s, {nbytes:.4g} B)")
     return dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound, plain_rows=plain_rows,
@@ -513,6 +566,39 @@ def main_shape_traversal(torch, state, view, errs):
                    lambda: kmp.minplus_mm_masked_plain(dr, big, dmr, am_m),
                    product_work(d, big, torch.isfinite), FP32_NONFMA,
                    plain_rows=R)]
+
+
+def sweep_flash(torch, errs):
+    """flash_attention on the card against its plain version over
+    FLASH_SWEEP, in f32 and bf16, plus a prefix of a longer cache read
+    through its strides."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    g = torch.Generator(device=DEV).manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        for b, hq, hkv, sq, skv, d, causal, window in FLASH_SWEEP:
+            q = torch.randn((b, hq, sq, d), generator=g, device=DEV).to(dtype)
+            k = torch.randn((b, hkv, skv, d), generator=g,
+                            device=DEV).to(dtype)
+            v = torch.randn((b, hkv, skv, d), generator=g,
+                            device=DEV).to(dtype)
+            kw = dict(causal=causal, window=window)
+            errs.check(torch, "flash_attention",
+                       kf.flash_attention(q, k, v, **kw),
+                       flash_attention_ref(q, k, v, **kw), False,
+                       f"{str(dtype)[6:]} {b}x{hq}/{hkv}x{sq}x{skv}x{d} "
+                       f"{'causal' if causal else 'full'} w={window}", tol)
+        cache = torch.randn((2, 8, 700, 128), generator=g,
+                            device=DEV).to(dtype)
+        q = torch.randn((2, 500, 32, 128), generator=g,
+                        device=DEV).to(dtype).transpose(1, 2)
+        k, v = cache[:, :, :600], cache.flip(2)[:, :, :600]
+        errs.check(torch, "flash_attention", kf.flash_attention(q, k, v),
+                   flash_attention_ref(q, k, v), False,
+                   f"{str(dtype)[6:]} strided q, cache prefix 600 of 700",
+                   tol)
 
 
 # --------------------------------- phase 3 ---------------------------------
@@ -840,6 +926,178 @@ def workload_phase(torch, np, timings):
     return launches
 
 
+# --------------------------------- phase 3d --------------------------------
+
+class FlashCapture:
+    """Within ``with``: records clones of the inputs of the first
+    ``ops.flash_attention`` call (a prefill's layer 0) and passes every
+    call on unchanged."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops as kops
+
+        self.kops, self.first = kops, None
+
+    def __enter__(self):
+        self.orig = self.kops.flash_attention
+
+        def wrapped(q, k, v, **kw):
+            if self.first is None:
+                self.first = (q.clone(), k.clone(), v.clone(), kw)
+            return self.orig(q, k, v, **kw)
+
+        self.kops.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.flash_attention = self.orig
+
+
+def attention_work(q, k, causal, window):
+    """(operations, bytes) of one attention call on these inputs: 4 D
+    operations per visible (query, key) pair (two products), q, k, v read
+    and the output written once each."""
+    import numpy as np
+    from repro_torch.kernels.ref import flash_offset
+
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    offs = flash_offset(sq, skv, causal)
+    i = np.arange(sq)
+    hi = np.clip(i + offs + 1, 0, skv)
+    lo = np.zeros_like(i) if window is None else np.clip(
+        i + offs - window + 1, 0, skv)
+    pairs = float(np.maximum(hi - lo, 0).sum()) * b * hq
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return 4.0 * d * pairs, float(nbytes)
+
+
+def rel_l2(torch, got, exp):
+    return float(torch.linalg.vector_norm((got - exp).float())
+                 / torch.linalg.vector_norm(exp.float()))
+
+
+def lm_phase(torch, errs, timings):
+    """Serve each LM_ARCHS model through the port's entry point, then hold
+    the kernel, the "xla" path and a fresh prefill against what it did.
+    Returns (flash launches of the serve runs, the kernel row timed at the
+    first model's layer 0)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+
+    launches, row = 0, None
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, experts "
+            f"{cfg.num_experts} top-{cfg.top_k}, {cfg.dtype}, "
+            f"{cfg.params_dense() / 1e9:.2f} B params")
+        kf.reset_launches()
+        t0 = time.perf_counter()
+        with FlashCapture() as cap:
+            r = serve.main(["--arch", arch, "--batch", str(LM_BATCH),
+                            "--prompt-len", str(LM_PROMPT), "--gen",
+                            str(LM_GEN)])
+        wall = time.perf_counter() - t0
+        n = kf.LAUNCHES["flash_attention"]
+        launches += n
+        steps = LM_GEN - 1
+        timings[f"{arch} serve (init + prefill + decode)"] = wall
+        log(f"  {arch} prefill {LM_BATCH}x{LM_PROMPT}: "
+            f"{r.prefill_s * 1e3:.1f} ms ({LM_BATCH * LM_PROMPT / r.prefill_s:.0f}"
+            f" tokens/s); decode {steps} steps: "
+            f"{r.decode_s / steps * 1e3:.2f} ms/token "
+            f"({LM_BATCH * steps / r.decode_s:.1f} tokens/s); peak device "
+            f"memory {r.peak_bytes / 2**30:.2f} GiB; flash launches {n}")
+        if n != cfg.num_layers:
+            raise AssertionError(f"{arch}: the prefill launched "
+                                 f"flash_attention {n} times, not once per "
+                                 f"layer ({cfg.num_layers})")
+        if (tuple(r.tokens.shape) != (LM_BATCH, LM_GEN)
+                or int(r.tokens.min()) < 0
+                or int(r.tokens.max()) >= cfg.vocab_size
+                or not bool(torch.isfinite(r.prefill_logits).all())
+                or not bool(torch.isfinite(r.last_logits).all())):
+            raise AssertionError(f"{arch}: bad tokens or non-finite logits")
+
+        q, k, v, kw = cap.first
+        if (tuple(q.shape) != (LM_BATCH, cfg.num_heads, LM_PROMPT,
+                               cfg.head_dim)
+                or tuple(k.shape) != (LM_BATCH, cfg.num_kv_heads, LM_PROMPT,
+                                      cfg.head_dim) or q.dtype != cfg.dtype):
+            raise AssertionError(f"{arch}: layer 0 handed the kernel "
+                                 f"{tuple(q.shape)} x {tuple(k.shape)}")
+        errs.check(torch, "flash_attention", kf.flash_attention(q, k, v, **kw),
+                   flash_attention_ref(q, k, v, **kw), False,
+                   f"{arch} layer 0 {tuple(q.shape)}/{k.shape[1]}",
+                   FLASH_TOL["bfloat16"])
+        if row is None:
+            row = kernel_row(
+                torch, "flash_attention", lambda: kf.flash_attention(q, k, v),
+                lambda: flash_attention_ref(q, k, v),
+                attention_work(q, k, True, None), BF16_PEAK,
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True,
+                                                       enable_gqa=True))
+        del q, k, v, cap
+
+        xla = get_model(dataclasses.replace(cfg, attn_impl="xla"))
+        cache = xla.init_cache(LM_BATCH, LM_PROMPT, dtype=cfg.dtype)
+        t0 = time.perf_counter()
+        x_logits, cache = xla.prefill(r.params, r.prompts, cache)
+        torch.cuda.synchronize()
+        timings[f"{arch} prefill, xla path (comparison)"] = \
+            time.perf_counter() - t0
+        err = rel_l2(torch, r.prefill_logits, x_logits)
+        agree = float((r.prefill_logits.argmax(-1)
+                       == x_logits.argmax(-1)).float().mean())
+        log(f"  {arch} prefill logits, flash vs xla path: rel L2 {err:.3g}, "
+            f"max |diff| {float((r.prefill_logits - x_logits).abs().max()):.3g}"
+            f", argmax agreement {agree:.2f}")
+        if not err < LM_REL_TOL:
+            raise AssertionError(f"{arch}: flash and xla prefill logits "
+                                 f"differ by {err:.3g} (rel L2)")
+        del cache, x_logits
+
+        # A decode step must equal a fresh prefill of the same tokens, both
+        # through the "xla" attention that decode runs (flash vs xla is held
+        # above).  For an MoE model that holds only without capacity drops:
+        # at decode an expert has max(1, int(B * k * 1.25 / E)) = 1 slot, so
+        # the served decode drops pairs that a prefill keeps.  Its check
+        # runs one decode step at capacity_factor = E / k (every token fits).
+        seq = torch.cat([r.prompts, r.tokens[:, :-1]], dim=1)
+        ncfg, dec = dataclasses.replace(cfg, attn_impl="xla"), r.last_logits
+        if cfg.num_experts:
+            ncfg = dataclasses.replace(
+                ncfg, capacity_factor=cfg.num_experts / cfg.top_k)
+            m = get_model(ncfg)
+            cache = m.init_cache(LM_BATCH, seq.shape[1], dtype=cfg.dtype)
+            _, cache = m.prefill(r.params, seq[:, :-1], cache)
+            dec, cache = m.decode_step(r.params, seq[:, -1:], cache)
+            del cache
+        model = get_model(ncfg)
+        cache = model.init_cache(LM_BATCH, seq.shape[1], dtype=cfg.dtype)
+        f_logits, cache = model.prefill(r.params, seq, cache)
+        err = rel_l2(torch, dec, f_logits)
+        agree = float((dec.argmax(-1) == f_logits.argmax(-1)).float().mean())
+        log(f"  {arch} {'last served' if dec is r.last_logits else 'no-drop'}"
+            f" decode step vs a fresh prefill of {seq.shape[1]} tokens: rel "
+            f"L2 {err:.3g}, argmax agreement {agree:.2f}")
+        if not err < LM_REL_TOL:
+            raise AssertionError(f"{arch}: decode logits differ from a "
+                                 f"fresh prefill by {err:.3g} (rel L2)")
+        del r, cache, f_logits, dec, model, xla
+        torch.cuda.empty_cache()
+    return launches, row
+
+
 def main() -> int:
     import torch
 
@@ -887,6 +1145,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += main_shape_traversal(torch, state, view, errs)
     torch.cuda.empty_cache()
+    sweep_flash(torch, errs)
     timings["kernels"] = time.perf_counter() - t0
 
     log("== phase 3a: main path (GraphService)")
@@ -909,6 +1168,14 @@ def main() -> int:
     timings["workload phase total"] = time.perf_counter() - t0
     for name in batched:
         launches[name] = batched[name] + mix[name]
+    del state
+    torch.cuda.empty_cache()
+
+    log("== phase 3d: LM serving (mistral_nemo_12b, granite_moe_1b)")
+    t0 = time.perf_counter()
+    launches["flash_attention"], flash_row = lm_phase(torch, errs, timings)
+    rows.append(flash_row)
+    timings["LM phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

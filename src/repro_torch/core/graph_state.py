@@ -41,7 +41,7 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: CUDA is not available on this machine; pass "
-            "device='cpu' to build the graph on the CPU")
+            "device='cpu' to run on the CPU")
     return dev
 
 

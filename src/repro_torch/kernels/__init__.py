@@ -7,13 +7,15 @@
     relaxation, ``sssp_batched_dense``), CUDA C++ in ``csrc/minplus_mm.cu``;
   * ``count_mm`` / ``count_mm_masked`` -- counting-semiring product
     (batched Brandes sigma and dependency flow), CUDA C++ in
-    ``csrc/count_mm.cu``.
+    ``csrc/count_mm.cu``;
+  * ``flash_attention`` -- causal GQA attention with an online softmax
+    (the LM's prefill, ``repro_torch.models.layers.attention``), CUDA C++
+    in ``csrc/flash_attention.cu``.
 
 Each ``<name>.py`` holds the ctypes wrapper, the launch counters and the
 plain PyTorch version side by side.  ``ops.py`` holds the padding
 wrappers, ``ref.py`` the plain oracles, ``backend.py`` the device dispatch,
-shape guards and shared helpers, ``build.py`` the nvcc build.  The
-reference's other Pallas kernel (``flash_attention``) is not ported yet
-(ROADMAP.md, queue 2).
+shape guards and shared helpers, ``build.py`` the nvcc build.  Every
+Pallas kernel of the reference has its Hopper kernel here.
 """
 from . import ops, ref  # noqa: F401

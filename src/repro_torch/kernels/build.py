@@ -7,9 +7,11 @@ an edited source rebuilds and an unchanged one loads the cached library.
 Builds happen at first use, inside the call that launches a kernel, never
 at import; ``load_all`` starts one ``nvcc`` per source at once.
 
-Every source exports the same three C entry points, which ``bind`` types:
-``<name>_block_shape(int*)``, ``<name>(x, a, out, m, k, n, stream)`` and
-``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``.
+Every source exports ``<name>_block_shape(int*)``, which ``bind`` checks
+against the wrapper's tiling, and its entry points, which ``bind`` types.
+The semiring sources share two: ``<name>(x, a, out, m, k, n, stream)`` and
+``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``; the attention
+wrapper passes its own argument types.
 """
 from __future__ import annotations
 
@@ -99,9 +101,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, blocks) -> ctypes.CDLL:
+def bind(name: str, blocks, argtypes=None) -> ctypes.CDLL:
     """``load(name)`` with its entry points typed, after checking that the
-    library's block shape is the wrapper's ``blocks`` = (BM, BN, BK)."""
+    library's block shape is the wrapper's ``blocks`` (three ints, for the
+    semiring products (BM, BN, BK)).  ``argtypes`` maps each entry point
+    to its argument types; by default the semiring pair ``<name>`` and
+    ``<name>_masked``.  Every entry point returns a ``cudaError_t``."""
     lib = _bound.get(name)
     if lib is None:
         lib = load(name)
@@ -113,9 +118,13 @@ def bind(name: str, blocks) -> ctypes.CDLL:
         if tuple(shape) != tuple(blocks):
             raise RuntimeError(f"csrc/{name}.cu blocks {tuple(shape)} != "
                                f"the wrapper's {tuple(blocks)}")
-        dense, masked = getattr(lib, name), getattr(lib, f"{name}_masked")
-        dense.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-        masked.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-        dense.restype = masked.restype = _I
+        if argtypes is None:
+            argtypes = {name: [_P, _P, _P, _I, _I, _I, _P],
+                        f"{name}_masked": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _P]}
+        for entry, types in argtypes.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = types
+            fn.restype = _I
         _bound[name] = lib
     return lib

@@ -17,6 +17,9 @@ every (slab, block) pair whose contribution is the identity.
 ``*_against(a, ...)`` prepares a right operand that stays fixed across many
 products (one per BFS level, relax pass or BC level): it is padded and its
 mask coarsened once, not per product.
+
+``flash_attention`` needs no padding: its kernel masks the ragged edges
+itself, so the wrapper here is the kernel module's entry point as it is.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 
 from . import bool_mm as _bool
 from . import count_mm as _count
+from . import flash_attention as _flash
 from . import minplus_mm as _minplus
 from .backend import check_amask
 
@@ -165,3 +169,11 @@ def count_mm(s: torch.Tensor, a: torch.Tensor,
     ``amask``: optional tile-occupancy grid of ``a``.
     """
     return count_mm_against(a, amask=amask, tile=tile)(s)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Causal GQA flash attention; q [B,Hq,Sq,D], kv [B,Hkv,Skv,D]."""
+    return _flash.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                  window=window)

@@ -13,8 +13,10 @@ import torch
 import repro_torch.core.semiring as tsem
 import repro_torch.kernels.bool_mm as tbool
 import repro_torch.kernels.count_mm as tcount
+import repro_torch.kernels.flash_attention as tflash
 import repro_torch.kernels.minplus_mm as tmin
 import repro_torch.kernels.ops as tops
+from repro_torch.kernels.ref import flash_attention_ref
 
 SHAPES = [(128, 128, 128), (70, 200, 130), (1, 512, 64), (256, 64, 256)]
 
@@ -134,3 +136,67 @@ def test_cuda_masked_kernels_skip_block_for_block(cuda_device, mod, name,
     torch.cuda.synchronize()
     assert torch.equal(got, exp)
     assert bool((got[:, bn:] == identity).all())
+
+
+# (b, hq, hkv, sq, skv, d, causal, window)
+FLASH = [
+    (1, 4, 4, 32, 32, 16, True, None),      # MHA square
+    (2, 4, 2, 37, 53, 16, True, None),      # GQA, ragged sq / skv
+    (1, 8, 1, 16, 64, 32, True, None),      # MQA
+    (2, 2, 2, 1, 40, 16, True, None),       # one query (decode shape)
+    (1, 2, 2, 24, 40, 16, False, None),     # non-causal
+    (1, 4, 2, 48, 48, 64, True, 8),         # window
+    (1, 4, 2, 100, 100, 32, False, 20),     # non-causal with a window
+    (1, 4, 1, 200, 330, 128, True, None),   # several tiles each way
+    (2, 8, 2, 130, 70, 64, True, 40),       # more queries than keys
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FLASH)
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, b, hq, hkv,
+                                            sq, skv, d, causal, window):
+    """f32 within 3e-5 (summation order); bf16 within one bf16 rounding
+    step (rtol 2^-7): both compute in f32 and round the output."""
+    g = torch.Generator(device="cpu").manual_seed(sq * skv + d)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda_device, dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+    before = tflash.LAUNCHES["flash_attention"]
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    exp = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, hq, sq, d)
+    if dtype == torch.float32:
+        assert float((got - exp).abs().max()) < 3e-5
+    else:
+        torch.testing.assert_close(got.float(), exp.float(), rtol=2**-7,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_cache_prefix_in_place(cuda_device):
+    """A prefix of a longer cache and a transposed query go to the kernel
+    through their strides, with no copy, and give the contiguous answer."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    cache_k = torch.randn((2, 2, 96, 64), generator=g).to(cuda_device)
+    cache_v = torch.randn((2, 2, 96, 64), generator=g).to(cuda_device)
+    q = torch.randn((2, 40, 8, 64), generator=g).to(cuda_device)
+    q = q.transpose(1, 2)                       # [B, H, S, D], strided
+    k, v = cache_k[:, :, :70], cache_v[:, :, :70]
+    assert not k.is_contiguous() and not q.is_contiguous()
+    got = tops.flash_attention(q, k, v)
+    exp = tops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+    assert float((got - flash_attention_ref(q, k, v)).abs().max()) < 3e-5
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_mixed_devices(cuda_device):
+    q = torch.zeros((1, 2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, q.cpu(), q.cpu())

@@ -1,0 +1,78 @@
+"""The port's serving entry point (``repro_torch.launch.serve``) on the CPU.
+
+It runs end to end at a reduced size, its greedy tokens equal a greedy loop
+over the reference's ``prefill``/``decode_step`` on the same weights and
+prompts, and without CUDA its default device raises.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config, reduced as jax_reduced
+from repro.models import get_model as jax_model
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import serve
+from repro_torch.models.convert import params_from_jax
+
+ARGS = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "9",
+        "--gen", "5"]
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "mistral_nemo_12b"])
+def test_main_runs_reduced_on_cpu(arch, capsys):
+    r = serve.main(["--arch", arch, *ARGS])
+    assert "[serve]" in capsys.readouterr().out
+    assert r.tokens.shape == (2, 5) and r.prompts.shape == (2, 9)
+    assert int(r.tokens.min()) >= 0 and int(r.tokens.max()) < 256
+    assert r.prefill_logits.shape == (2, 1, 256)
+    assert bool(torch.isfinite(r.last_logits).all())
+    assert r.peak_bytes is None  # no device memory on the CPU
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "qwen3_32b"])
+def test_greedy_tokens_match_reference(arch):
+    jcfg = jax_reduced(jax_config(arch))
+    jm = jax_model(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    r = serve.serve(reduced(get_config(arch)), batch=2, prompt_len=9,
+                    gen_len=5, device="cpu", params=params)
+    cache = jm.init_cache(2, 14, dtype=jnp.float32)
+    logits, cache = jax.jit(jm.prefill)(jparams, jnp.asarray(r.prompts.numpy()),
+                                        cache)
+    np.testing.assert_allclose(r.prefill_logits.numpy(), np.asarray(logits),
+                               rtol=1e-4, atol=1e-4)
+    decode = jax.jit(jm.decode_step)
+    toks = [jnp.argmax(logits[:, -1], axis=-1)[:, None]]
+    for _ in range(4):
+        logits, cache = decode(jparams, toks[-1], cache)
+        toks.append(jnp.argmax(logits[:, -1], axis=-1)[:, None])
+    np.testing.assert_array_equal(r.tokens.numpy(),
+                                  np.asarray(jnp.concatenate(toks, axis=1)))
+    np.testing.assert_allclose(r.last_logits.numpy(), np.asarray(logits),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_sampling_and_cache_dtype():
+    cfg = dataclasses.replace(reduced(get_config("granite_moe_1b")),
+                              dtype=torch.bfloat16)
+    r = serve.serve(cfg, batch=2, prompt_len=6, gen_len=3, temperature=0.8,
+                    device="cpu")
+    assert r.tokens.shape == (2, 3)
+    assert int(r.tokens.max()) < cfg.vocab_size
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced"])
+
+
+def test_ckpt_dir_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main([*ARGS, "--ckpt-dir", "somewhere"])

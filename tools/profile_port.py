@@ -14,16 +14,22 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
   * ``ladder round``   -- the stream's next batch and its nine queries;
   * ``sssp_batched_dense masked`` -- one batched SSSP at the batched
     phase's shape (``SRC_CHUNK`` sources of the initial R-MAT state, the
-    tile view's occupancy as the mask).
+    tile view's occupancy as the mask);
+  * ``<arch> prefill`` / ``<arch> decode x N`` -- for each model of
+    ``chip_smoke.LM_ARCHS`` at its serving shape (``LM_BATCH`` prompts of
+    ``LM_PROMPT`` tokens, seed 0 weights): one prefill after an unprofiled
+    warm-up prefill, then ``DECODE_STEPS`` greedy decode steps after as
+    many unprofiled warm-up steps.
 
 For each window it prints the host wall time, the summed device time of
 every kernel, the device busy share (device time / wall; the profiler's
-own host overhead lengthens the wall), and the kernels that take the most
-device time, then one JSON line with the same numbers.  For the SSSP call
-it also counts the host's reads of device values per relax pass, in a
-second, unprofiled run of the same call under
-``torch.cuda.set_sync_debug_mode("warn")`` (each synchronising read warns
-once).
+own host overhead lengthens the wall), the number of kernel launches and
+the kernels that take the most device time, then one JSON line with the
+same numbers.  For the SSSP call and the decode steps it also counts the
+host's reads of device values (per relax pass, per step), in a second,
+unprofiled run under ``torch.cuda.set_sync_debug_mode("warn")`` (each
+synchronising read warns once), and for the decode steps their unprofiled
+wall time.
 It needs CUDA and exits nonzero without it.
 """
 import json
@@ -33,6 +39,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DECODE_STEPS = 4
 
 
 def _device_us(evt) -> float:
@@ -61,13 +68,16 @@ def profile_window(torch, name, fn, top=8):
     rows = [r for r in rows if r[2] > 0]
     rows.sort(key=lambda r: -r[2])
     device_us = sum(r[2] for r in rows)
+    launches = sum(r[1] for r in rows)
     print(f"== {name}: wall {wall_us / 1e3:.1f} ms, device {device_us / 1e3:.1f}"
-          f" ms, busy {device_us / wall_us:.3f}", flush=True)
+          f" ms, busy {device_us / wall_us:.3f}, {launches} kernel launches",
+          flush=True)
     for key, count, us in rows[:top]:
         print(f"  {us / 1e3:10.2f} ms  {us / device_us:6.3f}  x{count:<6d} "
               f"{key[:90]}", flush=True)
     return {"window": name, "wall_ms": wall_us / 1e3,
             "device_ms": device_us / 1e3, "busy": device_us / wall_us,
+            "launches": launches,
             "top": [{"kernel": k[:120], "count": c, "ms": us / 1e3}
                     for k, c, us in rows[:top]]}
 
@@ -145,9 +155,62 @@ def main() -> int:
                    host_reads_per_pass=reads / max(passes, 1))
     print(f"  {passes} relax passes, {reads} synchronising host reads "
           f"({reads / max(passes, 1):.2f} per pass)", flush=True)
+    del state, svc, view, w, alive, srcs
+    torch.cuda.empty_cache()
+    out += lm_windows(torch, smoke)
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
     return 0
+
+
+def lm_windows(torch, smoke):
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    out = []
+    for arch in smoke.LM_ARCHS:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        draw = torch.Generator(device="cuda").manual_seed(1)
+        prompts = torch.randint(1, cfg.vocab_size,
+                                (smoke.LM_BATCH, smoke.LM_PROMPT),
+                                generator=draw, device="cuda")
+        # Room for four runs of decode(): warm-up, profiled, timed and the
+        # host-read count.
+        cache = model.init_cache(smoke.LM_BATCH, smoke.LM_PROMPT
+                                 + 4 * DECODE_STEPS, dtype=cfg.dtype)
+        state = {}
+
+        def prefill():
+            state["logits"], state["cache"] = model.prefill(params, prompts,
+                                                            cache)
+
+        def decode():
+            for _ in range(DECODE_STEPS):
+                tok = state["logits"][:, -1].argmax(dim=-1)[:, None]
+                state["logits"], state["cache"] = model.decode_step(
+                    params, tok, state["cache"])
+
+        prefill()  # warm-up: the kernel's first launch loads its module
+        out.append(profile_window(torch, f"{arch} prefill", prefill))
+        decode()  # warm-up
+        out.append(profile_window(torch, f"{arch} decode x {DECODE_STEPS}",
+                                  decode))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+        reads = host_reads(torch, decode)
+        out[-1].update(unprofiled_ms_per_step=step_ms,
+                       host_reads_per_step=reads / DECODE_STEPS)
+        print(f"  unprofiled decode {step_ms:.2f} ms/step, "
+              f"{reads / DECODE_STEPS:.2f} synchronising host reads per step",
+              flush=True)
+        del params, cache, state
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":
