@@ -10,7 +10,7 @@ exit code:
                  power limit (nvidia-smi);
   1. build    -- compile the four CUDA sources under
                  src/repro_torch/kernels/csrc with nvcc, all at once, and
-                 print each one's register and spill lines;
+                 print each kernel's registers and spills (-Xptxas -v);
   2. kernels  -- each kernel's wrapper on the card against its plain PyTorch
                  version on the same inputs: the shape and mask-density sweeps
                  of tests/test_kernels.py, the single-tile mask, and the main
@@ -19,14 +19,22 @@ exit code:
                  SSSP distance matrix of the batched queries), and
                  flash_attention over the attention sweeps of
                  tests/test_kernels.py plus head_dim 64 and 128, in f32 and
-                 bf16.  count_mm on float inputs matches to rtol = atol =
-                 1e-5, flash_attention as FLASH_TOL states; everything else
-                 bit for bit.  Each product is timed (CUDA events, median of 5)
+                 bf16, plus count products whose sums reach 2^24 - 1, a
+                 masked one on a float right operand (three bf16 planes),
+                 a three-plane one on a 2^-9 grid (every f32 summation
+                 order sums it alike), and a reading of the kernel and the
+                 plain version against the exact product on normals.
+                 count_mm on float inputs matches to rtol = atol = 1e-5,
+                 flash_attention as FLASH_TOL states; everything else bit
+                 for bit.  Each product is timed (CUDA events, median of 5)
                  beside its plain version (min-plus on a row subset: its
                  plain version cannot hold the full width), torch.matmul at
                  the same shape where one call computes the same function,
                  and its bound (the masked products' work counted at the
-                 fixed WORK_* granularity);
+                 fixed WORK_* granularity; the count products at their
+                 tensor-core form, one bf16 product per nonzero piece of the
+                 left operand's split, with all COUNT_TERMS products and the
+                 FP32 bound beside it);
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -85,6 +93,10 @@ FP32_NONFMA = 33.5e12   # the same, one non-FMA FP32 instruction per op, op/s
 INT8_PEAK = 1979e12     # H100 SXM int8 tensor cores (dense), op/s
 BF16_PEAK = 989e12      # H100 SXM bf16 tensor cores (dense), FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
+# bf16 products per k-step of the count kernel's exact split against the
+# main path's {0,1} adjacency at most (csrc/count_mm.cu): hi, mid and lo
+# of s; it skips a piece's products where the piece is zero
+COUNT_TERMS = 3
 TOL = dict(rtol=1e-5, atol=1e-5)
 # Granularity (rows x cols x k) at which the bound counts the masked
 # product's work: the operands' own nonzero blocks at this fixed size, not
@@ -225,6 +237,7 @@ class ErrLog:
 
 def sweep_kernels(torch, np, errs):
     from repro_torch.core import semiring
+    from repro_torch.kernels import count_mm as kc
     from repro_torch.kernels import ops as kops
 
     dev = DEV
@@ -253,6 +266,66 @@ def sweep_kernels(torch, np, errs):
                    semiring.count_mm(ft, at, use_kernel=False, amask=am,
                                      tile=tile), True,
                    f"masked {s}x{k}x{n} tile {tile} density {density}")
+    # the 2^24 - 1 boundary: counts whose sums reach 2^24 - 1 (one entry of
+    # 2^24 - 1, whose three bf16 pieces are all nonzero, and a row of
+    # counts below 2^14 with the same sum) against a {0,1} adjacency
+    s, k, n, tile = 256, 1024, 256, 64
+    f = (rng.random((s, k)) * 40).astype(np.int32).astype(np.float64)
+    f[0] = 0.0
+    f[0, 3] = 2**24 - 1
+    f[1] = (rng.random(k) * 2**14).astype(np.int32)
+    f[1, -1] = 0.0
+    f[1, -1] = 2**24 - 1 - f[1].sum()
+    a = (rng.random((k, n)) < 0.05).astype(np.float32)
+    a[:, 0] = 1.0
+    a[:, n // 2:] = 0.0
+    exact = f @ a.astype(np.float64)
+    if exact.max() != 2**24 - 1:
+        raise AssertionError("boundary case does not reach 2^24 - 1")
+    ft = torch.tensor(f.astype(np.float32), device=dev)
+    at = torch.tensor(a, device=dev)
+    am = torch.tensor(tile_occ(np, a, tile), device=dev)
+    exp = torch.tensor(exact.astype(np.float32), device=dev)
+    errs.check(torch, "count_mm", kops.count_mm(ft, at), exp, True,
+               f"int {s}x{k}x{n}, sums to 2^24 - 1")
+    errs.check(torch, "count_mm_masked",
+               kops.count_mm(ft, at, amask=am, tile=tile), exp, True,
+               f"masked {s}x{k}x{n}, sums to 2^24 - 1")
+    # the three-plane path (a not exact in bf16), masked
+    fr = torch.tensor(rng.standard_normal((64, 256)).astype(np.float32),
+                      device=dev)
+    ar_np = sparse_tiled(np, rng, 256, 192, 64, 0.5) * rng.standard_normal(
+        (256, 192)).astype(np.float32)
+    ar = torch.tensor(ar_np, device=dev)
+    if kc.right_planes(ar).shape[0] != 3:
+        raise AssertionError("a float right operand took one plane")
+    am = torch.tensor(tile_occ(np, ar_np, 64), device=dev)
+    errs.check(torch, "count_mm_masked",
+               kops.count_mm(fr, ar, amask=am, tile=64),
+               semiring.count_mm(fr, ar, use_kernel=False, amask=am,
+                                 tile=64), False,
+               "masked float 64x256x192, three planes")
+    # three planes on floats that every f32 summation order sums alike
+    # (multiples of 2^-9 in [-1, 1]): the kernel against its plain version
+    fg = (rng.integers(-512, 513, (200, 512)) / 512).astype(np.float32)
+    ag = (rng.integers(-512, 513, (512, 300)) / 512).astype(np.float32)
+    fg_t, ag_t = torch.tensor(fg, device=dev), torch.tensor(ag, device=dev)
+    errs.check(torch, "count_mm", kops.count_mm(fg_t, ag_t),
+               semiring.count_mm(fg_t, ag_t, use_kernel=False), False,
+               "float 200x512x300 on a 2^-9 grid, three planes")
+    # standard normals at the same shape: two f32 orders differ there, so
+    # this is a reading of each against the exact product, not a check
+    fn_np = rng.standard_normal((200, 512)).astype(np.float32)
+    an_np = rng.standard_normal((512, 300)).astype(np.float32)
+    fn_t, an_t = torch.tensor(fn_np, device=dev), torch.tensor(an_np,
+                                                               device=dev)
+    got = kops.count_mm(fn_t, an_t).cpu().numpy()
+    plain = semiring.count_mm(fn_t, an_t, use_kernel=False).cpu().numpy()
+    exact = fn_np.astype(np.float64) @ an_np.astype(np.float64)
+    log(f"  count_mm          normal 200x512x300, three planes: max |plain "
+        f"- exact| {np.abs(plain - exact).max():.3g}, max |kernel - exact| "
+        f"{np.abs(got - exact).max():.3g}, max |kernel - plain| "
+        f"{np.abs(got - plain).max():.3g}")
     # one live tile in the far corner: everything else is skipped
     tile, k, n, s = 32, 160, 160, 48
     a = np.zeros((k, n), np.float32)
@@ -427,20 +500,33 @@ def dense_work(S, K, N):
 
 
 def kernel_row(torch, name, kern, plain, work, peak, library=None,
-               plain_rows=None):
+               plain_rows=None, fp32_ops=None, all_terms_ops=None):
     """Time ``kern`` (and ``plain``, ``library``) and bound it by
-    ``work`` = (operations, bytes) at ``peak`` op/s and HBM_RATE."""
+    ``work`` = (operations, bytes) at ``peak`` op/s and HBM_RATE.  For the
+    count products ``fp32_ops`` are the same function's operations on the
+    CUDA cores: their bound at FP32_PEAK (the old SIMT design's ceiling) is
+    printed beside the tensor-core one, and so is the bound of
+    ``all_terms_ops``, those of all COUNT_TERMS products at ``peak`` (what
+    the split costs where no piece is zero).  Neither goes into the kernels
+    line: it carries only this run's times and the one bound."""
     ops, nbytes = work
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain, reps=3)
     library_ms = None if library is None else time_ms(torch, library)
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
     bound = max(t_ops, t_bytes)
+    fp32 = None if fp32_ops is None else max(fp32_ops / FP32_PEAK * 1e3,
+                                             t_bytes)
+    terms = None if all_terms_ops is None else max(
+        all_terms_ops / peak * 1e3, t_bytes)
     lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
     rows = "" if plain_rows is None else f" on its first {plain_rows} rows"
+    alt = "" if fp32 is None else (
+        f"; all {COUNT_TERMS} terms {terms:.3f} ms; FP32 bound {fp32:.3f} ms"
+        f" ({fp32_ops:.4g} op at {FP32_PEAK:.4g})")
     log(f"  {name:17s} kernel {ms:.3f} ms, plain{rows} {plain_ms:.3f} ms, "
         f"library {lib}, bound {bound:.3f} ms ({ops:.4g} op at "
-        f"{peak:.4g} op/s, {nbytes:.4g} B)")
+        f"{peak:.4g} op/s, {nbytes:.4g} B){alt}")
     return dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound, plain_rows=plain_rows,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -466,21 +552,46 @@ def main_shape_kernels(torch, state, view, errs):
                f"main path {S}x{V}x{V}")
     masked_k = kc.count_mm_masked(x, a, sm, am)
     masked_p = kc.count_mm_masked_plain(x, a, sm, am)
+    live = float(sm.float().sum(dim=0) @ am.float().sum(dim=1)) / (
+        sm.shape[0] * sm.shape[1] * am.shape[1])
+    sm0 = kops._slab_mask(x, 64, 32, _nonzero)
+    am0 = kops._coarsen_mask(occ, view.tile, 32, V // 32, 64, V // 64)
+    live0 = float(sm0.float().sum(dim=0) @ am0.float().sum(dim=1)) / (
+        sm0.shape[0] * sm0.shape[1] * am0.shape[1])
+    log(f"  masked: {live:.4f} of the (slab, block) pairs live at the "
+        f"kernel's {kc.BM}x{kc.BN}x{kc.BK} blocks, {live0:.4f} at 64x64x32")
     errs.check(torch, "count_mm_masked", masked_k, masked_p, True,
                f"main path {S}x{V}x{V}")
     errs.check(torch, "count_mm_masked", masked_k, dense_p, True,
                "main path, masked == dense")
     del dense_k, dense_p, masked_k, masked_p
 
+    # The kernel's own form of the same exact function: one bf16 product on
+    # the tensor cores for each piece of s's split (kc.split3) where the
+    # piece is nonzero, counted at the WORK_* granularity (the right
+    # operand, {0,1}, is one plane, split once as ops.count_mm_against
+    # does; its planes are not timed).
     library = lambda: torch.matmul(x, a)  # noqa: E731
+    planes = kc.right_planes(a)
+    dense, masked = dense_work(S, V, V), product_work(x, a)
+    pieces = [p.float() for p in kc.split3(x)]
+    dense_ops = sum(2.0 * WORK_BM * WORK_BK * V * float(
+        kops._slab_mask(p, WORK_BM, WORK_BK, _nonzero).sum())
+        for p in pieces)
+    masked_ops = sum(product_work(p, a)[0] for p in pieces)
+    share = [round(float((p != 0).float().mean()), 4) for p in pieces]
+    log(f"  s = hi + mid + lo, nonzero in {share} of the entries")
+    del pieces
     return [
-        kernel_row(torch, "count_mm", lambda: kc.count_mm(x, a),
-                   lambda: kc.count_mm_ref(x, a), dense_work(S, V, V),
-                   FP32_PEAK, library),
+        kernel_row(torch, "count_mm", lambda: kc.count_mm(x, a, planes),
+                   lambda: kc.count_mm_ref(x, a), (dense_ops, dense[1]),
+                   BF16_PEAK, library, fp32_ops=dense[0],
+                   all_terms_ops=COUNT_TERMS * dense[0]),
         kernel_row(torch, "count_mm_masked",
-                   lambda: kc.count_mm_masked(x, a, sm, am),
+                   lambda: kc.count_mm_masked(x, a, sm, am, planes),
                    lambda: kc.count_mm_masked_plain(x, a, sm, am),
-                   product_work(x, a), FP32_PEAK, library)]
+                   (masked_ops, masked[1]), BF16_PEAK, library,
+                   fp32_ops=masked[0], all_terms_ops=COUNT_TERMS * masked[0])]
 
 
 def main_shape_traversal(torch, state, view, errs):
@@ -1130,7 +1241,8 @@ def main() -> int:
     for src in sources:
         text = build.build_logs.get(src, "")
         lines = [ln.strip() for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln or "Performance Loss" in ln]
         log(f"  {src}: {lines or 'cached'}")
     log(f"  build {timings['build']:.2f} s ({len(sources)} sources at once)")
 

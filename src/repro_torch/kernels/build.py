@@ -2,16 +2,19 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone with
 ``nvcc`` for ``sm_90a`` into ``kernels/_build/<name>-<hash>.so`` (the
-directory is git-ignored), keyed by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads the cached library.
-Builds happen at first use, inside the call that launches a kernel, never
-at import; ``load_all`` starts one ``nvcc`` per source at once.
+directory is git-ignored), keyed by a hash of the source, the headers and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads the cached library.  The tensor-core sources share
+``csrc/hopper.cuh`` and find ``cuTensorMapEncodeTiled`` in
+``libcuda.so.1`` with ``dlopen`` (hence ``-ldl``).  Builds happen at
+first use, inside the call that launches a kernel, never at import;
+``load_all`` starts one ``nvcc`` per source at once.
 
 Every source exports ``<name>_block_shape(int*)``, which ``bind`` checks
 against the wrapper's tiling, and its entry points, which ``bind`` types.
-The semiring sources share two: ``<name>(x, a, out, m, k, n, stream)`` and
-``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``; the attention
-wrapper passes its own argument types.
+The boolean and min-plus sources share two: ``<name>(x, a, out, m, k, n,
+stream)`` and ``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``;
+the count and attention wrappers pass their own argument types.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-ldl")
 
 _loaded: dict = {}
 _bound: dict = {}
@@ -48,8 +52,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The cached library's path, keyed by the source, every header under
+    ``csrc`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    digest = hashlib.sha256(h.digest() + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -5,9 +5,12 @@ Port of ``repro.kernels.flash_attention``.  ``flash_attention`` takes q
 ``HEAD_DIMS``, all float32 or all bfloat16) and returns [B, Hq, Sq, D] in
 q's dtype.  A CUDA tensor launches the hand-written kernel in
 ``csrc/flash_attention.cu`` (built with nvcc at first use, bound with
-ctypes); it reads q, k and v through their batch, head and row strides, so
-a slice of a KV cache is read in place, and it masks the ragged edges
-itself.  A CPU tensor runs the plain version, ``ref.flash_attention_ref``.
+ctypes): bf16 its wgmma body, f32 its SIMT body.  It reads q, k and v
+through their batch, head and row strides, so a slice of a KV cache is read
+in place, and it masks the ragged edges itself.  The bf16 body loads by
+TMA, which takes a base address and strides that are multiples of 16
+bytes; ``tma_strides`` refuses the rest.  A CPU tensor runs the plain
+version, ``ref.flash_attention_ref``.
 There is no fallback from one to the other.
 
 ``LAUNCHES`` counts kernel launches; only a launch adds to it.
@@ -22,7 +25,7 @@ from . import build
 from .backend import launch, on_cuda
 from .ref import flash_attention_ref, flash_offset
 
-# The CUDA kernel's tiling (csrc/flash_attention.cu; checked against the
+# The f32 body's tiling (csrc/flash_attention.cu; checked against the
 # library's own flash_attention_block_shape when it loads).
 BQ, BK, THREADS = 64, 64, 256
 HEAD_DIMS = (16, 32, 64, 128)
@@ -70,6 +73,35 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{window}")
 
 
+def split_p(p: torch.Tensor):
+    """The bf16 body's two-term split of the probabilities (f32): ``p_hi``
+    = p truncated to bf16, ``p_lo`` = bf16(p - p_hi), so that ``p_hi +
+    p_lo`` is within 2^-15 of p relative (one bf16 rounding: 2^-9).  Both
+    go through the P V product; the plain twin of the kernel's split."""
+    p = p.float()
+    hi = (p.view(torch.int32) & -65536).view(torch.float32)
+    return hi.bfloat16(), (p - hi).bfloat16()
+
+
+def tma_strides(x: torch.Tensor) -> tuple:
+    """The batch, head and row strides (elements) of a bf16 operand as the
+    kernel's TMA maps take them.  Raises unless the base address and every
+    stride of a dimension longer than 1 are multiples of 16 bytes; a
+    dimension of length 1 is never stepped, so its stride is replaced by one
+    that is (the span of the whole tensor)."""
+    size = x.element_size()
+    span = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+    span = -(-span * size // 16) * 16 // size
+    strides = tuple(st if n > 1 else span
+                    for n, st in zip(x.shape[:3], x.stride()[:3]))
+    if x.data_ptr() % 16 or any(st * size % 16 for st in strides):
+        raise ValueError(
+            f"flash_attention: the bf16 kernel loads by TMA, which needs a "
+            f"16-byte aligned base and strides; got base {x.data_ptr() % 16} "
+            f"bytes off, strides {tuple(x.stride())} ({size}-byte elements)")
+    return strides
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """``x`` with a contiguous last dimension (the kernel's one layout
     demand); any batch, head and row strides are fine."""
@@ -93,11 +125,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hkv, skv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else float(d) ** -0.5
     q, k, v = _rows(q), _rows(k), _rows(v)
+    strides = (tma_strides if q.dtype == torch.bfloat16
+               else lambda x: x.stride()[:3])
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     launch("flash_attention", _lib().flash_attention, q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, hq,
-           hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3],
-           *v.stride()[:3], flash_offset(sq, skv, causal), window or 0,
-           scale)
+           hkv, sq, skv, d, *strides(q), *strides(k), *strides(v),
+           flash_offset(sq, skv, causal), window or 0, scale)
     LAUNCHES["flash_attention"] += 1
     return out

@@ -16,7 +16,8 @@ every (slab, block) pair whose contribution is the identity.
 
 ``*_against(a, ...)`` prepares a right operand that stays fixed across many
 products (one per BFS level, relax pass or BC level): it is padded and its
-mask coarsened once, not per product.
+mask coarsened once, not per product; for the count product on the card it
+is also split once into the kernel's bf16 planes (``count_mm.right_planes``).
 
 ``flash_attention`` needs no padding: its kernel masks the ragged edges
 itself, so the wrapper here is the kernel module's entry point as it is.
@@ -93,9 +94,12 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
 
 
 def _against(kern, name: str, identity: float, nonidentity,
-             a: torch.Tensor, amask: torch.Tensor | None, tile: int):
+             a: torch.Tensor, amask: torch.Tensor | None, tile: int,
+             prepare=None):
     """``x -> name(x, a)`` through ``kern``'s dense or masked entry point,
-    with ``a`` padded and ``amask`` coarsened to the kernel's blocks once."""
+    with ``a`` padded and ``amask`` coarsened to the kernel's blocks once.
+    ``prepare(ap)``, where given, makes once from the padded ``a`` the extra
+    keyword arguments that every call of the entry points gets."""
     bm, bn, bk = kern.BM, kern.BN, kern.BK
     ap, (_, n) = _pad2(a.float(), bk, bn, identity)
     dense = getattr(kern, name)
@@ -105,13 +109,15 @@ def _against(kern, name: str, identity: float, nonidentity,
         check_amask(name, amask.shape, a.shape[0], a.shape[1], tile)
         am = _coarsen_mask(amask, tile, bk, ap.shape[0] // bk, bn,
                            ap.shape[1] // bn)
+    kw = {} if prepare is None else prepare(ap)
 
     def product(x: torch.Tensor) -> torch.Tensor:
         xp, (m, _) = _pad2(x.float(), bm, bk, identity)
         if am is None:
-            out = dense(xp, ap)
+            out = dense(xp, ap, **kw)
         else:
-            out = masked(xp, ap, _slab_mask(xp, bm, bk, nonidentity), am)
+            out = masked(xp, ap, _slab_mask(xp, bm, bk, nonidentity), am,
+                         **kw)
         return out if out.shape == (m, n) else out[:m, :n]
 
     return product
@@ -136,7 +142,14 @@ def count_mm_against(a: torch.Tensor, amask: torch.Tensor | None = None,
                      tile: int = 128):
     """``s -> count_mm(s, a, amask, tile)`` for a right operand reused
     across the BC levels."""
-    return _against(_count, "count_mm", 0.0, _nonzero, a, amask, tile)
+    return _against(_count, "count_mm", 0.0, _nonzero, a, amask, tile,
+                    prepare=_count_planes)
+
+
+def _count_planes(ap: torch.Tensor) -> dict:
+    """The count kernel reads its right operand as bf16 planes: split the
+    padded operand once, on the card."""
+    return {"planes": _count.right_planes(ap)} if ap.is_cuda else {}
 
 
 def bool_mm(f: torch.Tensor, a: torch.Tensor,

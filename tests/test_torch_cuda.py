@@ -114,7 +114,8 @@ def test_cuda_minplus_mm_matches_plain(cuda_device, s, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mod,name,identity", [
-    (tbool, "bool_mm", 0.0), (tmin, "minplus_mm", float("inf"))])
+    (tbool, "bool_mm", 0.0), (tmin, "minplus_mm", float("inf")),
+    (tcount, "count_mm", 0.0)])
 def test_cuda_masked_kernels_skip_block_for_block(cuda_device, mod, name,
                                                   identity):
     """Raw masked entry points with a deliberately wrong mask equal the
@@ -138,6 +139,131 @@ def test_cuda_masked_kernels_skip_block_for_block(cuda_device, mod, name,
     assert bool((got[:, bn:] == identity).all())
 
 
+def _boundary_counts(rng, s, k):
+    """Integer rows whose products with an all-ones column reach 2^24 - 1:
+    row 0 one entry of 2^24 - 1 (all three bf16 pieces nonzero), row 1
+    entries below 2^14 summing to 2^24 - 1, the rest small counts."""
+    x = rng.integers(0, 40, (s, k)).astype(np.float64)
+    x[0] = 0.0
+    x[0, 3] = 2**24 - 1
+    x[1] = rng.integers(0, 2**14, k)
+    x[1, -1] = 0.0
+    x[1, -1] = 2**24 - 1 - x[1].sum()
+    assert 0 <= x[1, -1] < 2**24
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_count_mm_exact_at_the_2_24_boundary(cuda_device, masked):
+    """Integer counts whose sums reach 2^24 - 1 against a {0,1} adjacency
+    (one bf16 plane): bit-exact against the f64 product and the plain
+    version, dense and masked."""
+    rng = np.random.default_rng(24)
+    s, k, n = 256, 1024, 256
+    f = _boundary_counts(rng, s, k)
+    a = (rng.random((k, n)) < 0.05).astype(np.float32)
+    a[:, 0] = 1.0
+    a[:, n // 2:] = 0.0  # a band of empty tiles to skip
+    exp = (f.astype(np.float64) @ a.astype(np.float64))
+    assert exp.max() == 2**24 - 1
+    fc = torch.tensor(f, device=cuda_device)
+    ac = torch.tensor(a, device=cuda_device)
+    assert tcount.right_planes(ac).shape[0] == 1
+    name = "count_mm_masked" if masked else "count_mm"
+    before = tcount.LAUNCHES[name]
+    kw = dict(amask=torch.tensor(_tile_occ(a, 64), device=cuda_device),
+              tile=64) if masked else {}
+    got = tops.count_mm(fc, ac, **kw)
+    plain = tsem.count_mm(fc, ac, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert tcount.LAUNCHES[name] == before + 1
+    assert np.array_equal(got.cpu().numpy(), exp.astype(np.float32))
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_count_mm_float_operands_three_planes(cuda_device, masked):
+    """General floats on both sides (three planes of a, six products)
+    within rtol = atol = 1e-5 of the exact product, and no further from it
+    than twice the plain f32 product is.  (At K = 512 two f32 summation
+    orders already differ by more than 1e-5 in places, so the plain
+    product is no fixed point to hold the kernel to at 1e-5.)"""
+    rng = np.random.default_rng(6)
+    s, k, n = 200, 512, 300
+    f = rng.standard_normal((s, k)).astype(np.float32)
+    a = rng.standard_normal((k, n)).astype(np.float32)
+    a[:128, :128] = 0.0
+    fc = torch.tensor(f, device=cuda_device)
+    ac = torch.tensor(a, device=cuda_device)
+    assert tcount.right_planes(ac).shape[0] == 3
+    kw = dict(amask=torch.tensor(_tile_occ(a, 64), device=cuda_device),
+              tile=64) if masked else {}
+    got = tops.count_mm(fc, ac, **kw)
+    plain = tsem.count_mm(fc, ac, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    exact = f.astype(np.float64) @ a.astype(np.float64)
+    err = np.abs(got.cpu().numpy() - exact)
+    assert np.allclose(got.cpu().numpy(), exact, rtol=1e-5, atol=1e-5)
+    assert err.max() <= 2 * np.abs(plain.cpu().numpy() - exact).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_count_mm_three_planes_match_plain(cuda_device, masked):
+    """The three-plane path held to the plain version at rtol = atol = 1e-5
+    on floats where every f32 summation order gives the same answer:
+    multiples of 2^-9 in [-1, 1] (ten significant bits, so a is not exact
+    in bf16) whose products and partial sums stay exact in f32."""
+    rng = np.random.default_rng(7)
+    s, k, n = 200, 512, 300
+    f = (rng.integers(-512, 513, (s, k)) / 512).astype(np.float32)
+    a = (rng.integers(-512, 513, (k, n)) / 512).astype(np.float32)
+    a[:128, :128] = 0.0
+    exact = f.astype(np.float64) @ a.astype(np.float64)
+    assert np.array_equal((f @ a).astype(np.float64), exact)
+    fc = torch.tensor(f, device=cuda_device)
+    ac = torch.tensor(a, device=cuda_device)
+    assert tcount.right_planes(ac).shape[0] == 3
+    name = "count_mm_masked" if masked else "count_mm"
+    before = tcount.LAUNCHES[name]
+    kw = dict(amask=torch.tensor(_tile_occ(a, 64), device=cuda_device),
+              tile=64) if masked else {}
+    got = tops.count_mm(fc, ac, **kw)
+    plain = tsem.count_mm(fc, ac, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert tcount.LAUNCHES[name] == before + 1
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_count_mm_masked_rows_are_independent(cuda_device):
+    """A row of the masked product is bit-identical whether the other rows
+    of its slab are zero (its dead k-steps skipped) or not (computed), on
+    backward-style flows (1 + delta) / sigma: what lets a delta bc_scores
+    reproduce a cold one."""
+    rng = np.random.default_rng(11)
+    s, k, n = 256, 1024, 256
+    sigma = rng.integers(1, 5000, (s, k)).astype(np.float32)
+    delta = rng.random((s, k)).astype(np.float32) * 30
+    f = ((1 + delta) / sigma).astype(np.float32)
+    f[rng.random((s, k)) < 0.5] = 0.0
+    f[5, 64:640] = 0.0  # k-steps where row 5 alone is dead
+    a = (rng.random((k, n)) < 0.1).astype(np.float32)
+    ac = torch.tensor(a, device=cuda_device)
+    amask = torch.tensor(_tile_occ(a, 64), device=cuda_device)
+    product = tops.count_mm_against(ac, amask=amask, tile=64)
+    full = product(torch.tensor(f, device=cuda_device))
+    alone = np.zeros_like(f)
+    alone[5] = f[5]
+    single = product(torch.tensor(alone, device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(full[5], single[5])
+    torch.testing.assert_close(full, torch.tensor(f @ a, device=cuda_device),
+                               rtol=1e-5, atol=1e-5)
+
+
 # (b, hq, hkv, sq, skv, d, causal, window)
 FLASH = [
     (1, 4, 4, 32, 32, 16, True, None),      # MHA square
@@ -149,6 +275,9 @@ FLASH = [
     (1, 4, 2, 100, 100, 32, False, 20),     # non-causal with a window
     (1, 4, 1, 200, 330, 128, True, None),   # several tiles each way
     (2, 8, 2, 130, 70, 64, True, 40),       # more queries than keys
+    (1, 4, 2, 300, 300, 128, False, None),  # non-causal, head dim 128
+    (2, 4, 1, 257, 257, 128, True, 100),    # window, ragged, head dim 128
+    (1, 8, 2, 70, 200, 128, True, None),    # a long prefix, head dim 128
 ]
 
 
@@ -200,3 +329,38 @@ def test_cuda_flash_attention_refuses_mixed_devices(cuda_device):
     q = torch.zeros((1, 2, 8, 16), device=cuda_device)
     with pytest.raises(ValueError):
         tops.flash_attention(q, q.cpu(), q.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_bf16_cache_prefix(cuda_device, d):
+    """bf16 through the TMA maps over a cache prefix and a transposed
+    query: the plain version's answer to one bf16 rounding step."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    cache = torch.randn((2, 4, 300, d), generator=g).to(cuda_device,
+                                                         torch.bfloat16)
+    q = torch.randn((2, 150, 8, d), generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+    q = q.transpose(1, 2)
+    k, v = cache[:, :, :210], cache.flip(2)[:, :, :210]
+    before = tflash.LAUNCHES["flash_attention"]
+    got = tops.flash_attention(q, k, v)
+    exp = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), exp.float(), rtol=2**-7,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_unaligned_stride(cuda_device):
+    """A bf16 row stride TMA cannot take (136 bytes) raises, launching
+    nothing."""
+    base = torch.zeros((1, 2, 40, 68), dtype=torch.bfloat16,
+                       device=cuda_device)
+    k = base[..., :64]
+    q = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16, device=cuda_device)
+    before = tflash.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        tops.flash_attention(q, k, k)
+    assert tflash.LAUNCHES["flash_attention"] == before

@@ -148,10 +148,10 @@ def test_guards_raise_the_reference_errors():
     assert msg(tbackend.check_amask, *args) == msg(jbackend.check_amask,
                                                    *args)
     x = torch.ones((130, 64))
-    y = torch.ones((64, 64))
+    y = torch.ones((64, 128))  # one block of the kernel (128 x 128 x 64)
     with pytest.raises(ValueError, match="truncation"):
         tcount.count_mm(x, y)
-    assert tcount.count_mm(x[:128], y).shape == (128, 64)
+    assert tcount.count_mm(x[:128], y).shape == (128, 128)
     with pytest.raises(ValueError, match="block grid"):
         tcount.count_mm_masked(x[:128], y, torch.ones((1, 1), dtype=torch.int32),
                                torch.ones((2, 1), dtype=torch.int32))
