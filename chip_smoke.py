@@ -28,13 +28,18 @@ exit code:
                  flash_attention as FLASH_TOL states; everything else bit
                  for bit.  Each product is timed (CUDA events, median of 5)
                  beside its plain version (min-plus on a row subset: its
-                 plain version cannot hold the full width), torch.matmul at
-                 the same shape where one call computes the same function,
+                 plain version cannot hold the full width), one library call
+                 at the same shape where one computes the same function
+                 (torch.matmul; for the boolean products torch._int_mm on
+                 the int8-packed operands, the FP32 torch.matmul beside it),
                  and its bound (the masked products' work counted at the
                  fixed WORK_* granularity; the count products at their
                  tensor-core form, one bf16 product per nonzero piece of the
                  left operand's split, with all COUNT_TERMS products and the
-                 FP32 bound beside it);
+                 FP32 bound beside it; the boolean products on the packed
+                 int8 adjacency they read).  bool_mm is also held and timed
+                 at the static mode's shape (STATIC_ROWS rows), and its two
+                 packs are timed on their own;
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -104,6 +109,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # blocks do.
 WORK_BM, WORK_BN, WORK_BK = 64, 64, 32
 PLAIN_ROWS = 256        # rows of the min-plus products its plain version runs
+STATIC_ROWS = 128       # the static mode's product: one source, one row block
 N_SAMPLES = 8           # sources of the batched queries held against COO
 WORKLOAD_OPS, WORKLOAD_MIX, UPDATE_BATCH = 45, (0.4, 0.1, 0.5), 8
 KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
@@ -135,6 +141,10 @@ FLASH_SWEEP = [(1, 4, 4, 32, 32, 16, True, None),
                (2, 16, 8, 300, 300, 64, True, None),
                (1, 32, 8, 257, 513, 128, True, None),
                (2, 8, 2, 130, 70, 64, True, 40)]
+# Keys a kernel row may carry beyond the required ones: the boolean rows'
+# FP32 yardstick, the static mode's shape and the packs' own times.
+EXTRA_KEYS = ("matmul_fp32_ms", "static", "pack_right_ms", "pack_left_ms",
+              "pack_left_static_ms")
 LM_ARCHS = ("mistral_nemo_12b", "granite_moe_1b")
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # Two bf16 forward passes that differ only in where they round (the flash
@@ -476,12 +486,13 @@ def capture_main_products(torch, state, view):
     return a, view.occ, fwd.wide
 
 
-def product_work(x, a, nonidentity=_nonzero):
+def product_work(x, a, nonidentity=_nonzero, a_bytes=4):
     """(operations, bytes) the masked product needs on these inputs,
     counted at the fixed WORK_* granularity: only the (slab, block) pairs
     where both operands hold a non-identity entry (two operations per
     term: a multiply and an add, or an add and a min), each needed input
-    block read once, the whole output and one int32 occupancy flag per
+    block read once (f32, the right operand at ``a_bytes`` per entry as the
+    kernel reads it), the whole f32 output and one int32 occupancy flag per
     block written/read once."""
     sm, am = work_masks(x, a, nonidentity)
     pairs = float(sm.sum(dim=0).double() @ am.sum(dim=1).double())
@@ -489,18 +500,21 @@ def product_work(x, a, nonidentity=_nonzero):
     a_blocks = float((am & sm.any(dim=0)[:, None]).sum())
     S, N = x.shape[0], a.shape[1]
     flops = 2.0 * WORK_BM * WORK_BN * WORK_BK * pairs
-    nbytes = 4.0 * (s_blocks * WORK_BM * WORK_BK + a_blocks * WORK_BK
-                    * WORK_BN + S * N) + 4.0 * (sm.numel() + am.numel())
+    nbytes = (4.0 * (s_blocks * WORK_BM * WORK_BK + S * N)
+              + a_bytes * a_blocks * WORK_BK * WORK_BN
+              + 4.0 * (sm.numel() + am.numel()))
     return flops, nbytes
 
 
-def dense_work(S, K, N):
-    """(operations, bytes) of a dense S x K x N semiring product in f32."""
-    return 2.0 * S * K * N, 4.0 * (S * K + K * N + S * N)
+def dense_work(S, K, N, a_bytes=4):
+    """(operations, bytes) of a dense S x K x N semiring product: f32 left
+    operand and output, the right operand at ``a_bytes`` per entry."""
+    return 2.0 * S * K * N, 4.0 * (S * K + S * N) + a_bytes * K * N
 
 
 def kernel_row(torch, name, kern, plain, work, peak, library=None,
-               plain_rows=None, fp32_ops=None, all_terms_ops=None):
+               plain_rows=None, fp32_ops=None, all_terms_ops=None,
+               matmul_fp32=None):
     """Time ``kern`` (and ``plain``, ``library``) and bound it by
     ``work`` = (operations, bytes) at ``peak`` op/s and HBM_RATE.  For the
     count products ``fp32_ops`` are the same function's operations on the
@@ -508,11 +522,15 @@ def kernel_row(torch, name, kern, plain, work, peak, library=None,
     printed beside the tensor-core one, and so is the bound of
     ``all_terms_ops``, those of all COUNT_TERMS products at ``peak`` (what
     the split costs where no piece is zero).  Neither goes into the kernels
-    line: it carries only this run's times and the one bound."""
+    line: it carries only this run's times and the one bound.  For the
+    boolean products, whose library call is the int8 ``torch._int_mm``,
+    ``matmul_fp32`` is the FP32 ``torch.matmul`` kept beside it for
+    continuity with the earlier rows (as ``matmul_fp32_ms``)."""
     ops, nbytes = work
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain, reps=3)
     library_ms = None if library is None else time_ms(torch, library)
+    fp32_ms = None if matmul_fp32 is None else time_ms(torch, matmul_fp32)
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
     bound = max(t_ops, t_bytes)
     fp32 = None if fp32_ops is None else max(fp32_ops / FP32_PEAK * 1e3,
@@ -520,6 +538,8 @@ def kernel_row(torch, name, kern, plain, work, peak, library=None,
     terms = None if all_terms_ops is None else max(
         all_terms_ops / peak * 1e3, t_bytes)
     lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
+    if fp32_ms is not None:
+        lib += f" (FP32 torch.matmul {fp32_ms:.3f} ms)"
     rows = "" if plain_rows is None else f" on its first {plain_rows} rows"
     alt = "" if fp32 is None else (
         f"; all {COUNT_TERMS} terms {terms:.3f} ms; FP32 bound {fp32:.3f} ms"
@@ -527,9 +547,12 @@ def kernel_row(torch, name, kern, plain, work, peak, library=None,
     log(f"  {name:17s} kernel {ms:.3f} ms, plain{rows} {plain_ms:.3f} ms, "
         f"library {lib}, bound {bound:.3f} ms ({ops:.4g} op at "
         f"{peak:.4g} op/s, {nbytes:.4g} B){alt}")
-    return dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound, plain_rows=plain_rows,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    row = dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound, plain_rows=plain_rows,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    if fp32_ms is not None:
+        row["matmul_fp32_ms"] = fp32_ms
+    return row
 
 
 def main_shape_kernels(torch, state, view, errs):
@@ -629,16 +652,26 @@ def main_shape_traversal(torch, state, view, errs):
                               V // kb.BN)
     am_m = kops._coarsen_mask(view.occ, view.tile, kmp.BK, V // kmp.BK,
                               kmp.BN, V // kmp.BN)
+    # the adjacency packed once, as ops.bool_mm_against does
+    apk = kb.pack_right(a)
+    if not torch.equal(apk, kb.pack_right_plain(a)):
+        raise AssertionError("pack_right disagrees with its plain version")
+    # (label, frontier): the first and the widest level, and the static
+    # mode's shape (one row block of the widest frontier)
     for label, f in (("first level", bfs_cap.first),
-                     (f"level {bfs_cap.wide_level}", bfs_cap.wide)):
+                     (f"level {bfs_cap.wide_level}", bfs_cap.wide),
+                     (f"level {bfs_cap.wide_level} rows :{STATIC_ROWS}",
+                      bfs_cap.wide[:STATIC_ROWS])):
         fm = kops._slab_mask(f, kb.BM, kb.BK, _nonzero)
-        dense_k = kb.bool_mm(f, a)
+        if not torch.equal(kb.pack_left(f), kb.pack_left_plain(f)):
+            raise AssertionError(f"pack_left disagrees on {label}")
+        what = f"main path {f.shape[0]}x{V}x{V}, {label}"
+        dense_k = kb.bool_mm(f, a, apk)
         errs.check(torch, "bool_mm", dense_k, kb.bool_mm_ref(f, a), True,
-                   f"main path {S}x{V}x{V}, {label}")
-        masked_k = kb.bool_mm_masked(f, a, fm, am_b)
+                   what)
+        masked_k = kb.bool_mm_masked(f, a, fm, am_b, apk)
         errs.check(torch, "bool_mm_masked", masked_k,
-                   kb.bool_mm_masked_plain(f, a, fm, am_b), True,
-                   f"main path {S}x{V}x{V}, {label}")
+                   kb.bool_mm_masked_plain(f, a, fm, am_b), True, what)
         errs.check(torch, "bool_mm_masked", masked_k, dense_k, True,
                    f"main path, {label}, masked == dense")
     for label, d in (("first pass", sssp_cap.first),
@@ -661,14 +694,9 @@ def main_shape_traversal(torch, state, view, errs):
     fm = kops._slab_mask(f, kb.BM, kb.BK, _nonzero)
     dm = kops._slab_mask(d, kmp.BM, kmp.BK, torch.isfinite)
     dr, dmr = d[:R].contiguous(), dm[:R // kmp.BM]
-    return [
-        kernel_row(torch, "bool_mm", lambda: kb.bool_mm(f, a),
-                   lambda: kb.bool_mm_ref(f, a), dense_work(S, V, V),
-                   INT8_PEAK, lambda: torch.matmul(f, a)),
-        kernel_row(torch, "bool_mm_masked",
-                   lambda: kb.bool_mm_masked(f, a, fm, am_b),
-                   lambda: kb.bool_mm_masked_plain(f, a, fm, am_b),
-                   product_work(f, a), INT8_PEAK, lambda: torch.matmul(f, a)),
+    bool_rows = bool_kernel_rows(torch, f, a, apk, fm, am_b)
+    del apk
+    return bool_rows + [
         kernel_row(torch, "minplus_mm", lambda: kmp.minplus_mm(d, big),
                    lambda: kmp.minplus_mm_plain(dr, big),
                    dense_work(S, V, V), FP32_NONFMA, plain_rows=R),
@@ -677,6 +705,57 @@ def main_shape_traversal(torch, state, view, errs):
                    lambda: kmp.minplus_mm_masked_plain(dr, big, dmr, am_m),
                    product_work(d, big, torch.isfinite), FP32_NONFMA,
                    plain_rows=R)]
+
+
+def bool_kernel_rows(torch, f, a, apk, fm, am_b):
+    """The boolean rows, timed at the widest frontier (S = SRC_CHUNK) with
+    the adjacency packed once (``apk``), bounded on the operands as the
+    kernel reads them (f32 f and output, int8 packed a) at the int8 rate.
+    The library call is ``torch._int_mm`` on the packed operands (the same
+    exact counts on the int8 tensor cores; its threshold is not timed),
+    the FP32 ``torch.matmul`` beside it.  The dense row also carries the
+    static mode's shape (M = STATIC_ROWS rows) under ``static`` and the
+    two packs timed on their own."""
+    from repro_torch.kernels import bool_mm as kb
+
+    S, V = f.shape
+    fpk = kb.pack_left(f)
+    counts = torch._int_mm(fpk, apk.t())
+    if not torch.equal((counts > 0).float(), kb.bool_mm(f, a, apk)):
+        raise AssertionError("torch._int_mm > 0 disagrees with bool_mm")
+    del counts
+    dense = kernel_row(torch, "bool_mm", lambda: kb.bool_mm(f, a, apk),
+                       lambda: kb.bool_mm_ref(f, a),
+                       dense_work(S, V, V, a_bytes=1), INT8_PEAK,
+                       lambda: torch._int_mm(fpk, apk.t()),
+                       matmul_fp32=lambda: torch.matmul(f, a))
+    fs = f[:STATIC_ROWS].contiguous()
+    fspk = kb.pack_left(fs)
+    log(f"  static shape, M = {STATIC_ROWS}:")
+    static = kernel_row(torch, "bool_mm", lambda: kb.bool_mm(fs, a, apk),
+                        lambda: kb.bool_mm_ref(fs, a),
+                        dense_work(STATIC_ROWS, V, V, a_bytes=1), INT8_PEAK,
+                        lambda: torch._int_mm(fspk, apk.t()),
+                        matmul_fp32=lambda: torch.matmul(fs, a))
+    dense["static"] = {key: static[key] for key in (
+        "ms", "plain_ms", "library_ms", "matmul_fp32_ms", "bound_ms",
+        "bound_by")}
+    dense["static"]["m"] = STATIC_ROWS
+    packs = {"pack_right_ms": time_ms(torch, lambda: kb.pack_right(a)),
+             "pack_left_ms": time_ms(torch, lambda: kb.pack_left(f)),
+             "pack_left_static_ms": time_ms(torch, lambda: kb.pack_left(fs))}
+    log(f"  packs on their own: a {V}x{V} -> int8 transposed "
+        f"{packs['pack_right_ms']:.3f} ms; f {S}x{V} "
+        f"{packs['pack_left_ms']:.3f} ms; f {STATIC_ROWS}x{V} "
+        f"{packs['pack_left_static_ms']:.4f} ms")
+    dense.update(packs)
+    masked = kernel_row(torch, "bool_mm_masked",
+                        lambda: kb.bool_mm_masked(f, a, fm, am_b, apk),
+                        lambda: kb.bool_mm_masked_plain(f, a, fm, am_b),
+                        product_work(f, a, a_bytes=1), INT8_PEAK,
+                        lambda: torch._int_mm(fpk, apk.t()),
+                        matmul_fp32=lambda: torch.matmul(f, a))
+    return [dense, masked]
 
 
 def sweep_flash(torch, errs):
@@ -1242,7 +1321,8 @@ def main() -> int:
         text = build.build_logs.get(src, "")
         lines = [ln.strip() for ln in text.splitlines()
                  if "entry function" in ln or "registers" in ln
-                 or "spill" in ln or "Performance Loss" in ln]
+                 or "spill" in ln or "Performance Loss" in ln
+                 or "warning" in ln]
         log(f"  {src}: {lines or 'cached'}")
     log(f"  build {timings['build']:.2f} s ({len(sources)} sources at once)")
 
@@ -1303,7 +1383,8 @@ def main() -> int:
             "max_abs_err": errs.max[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "plain_rows": row["plain_rows"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+            "library_ms": row["library_ms"],
+            **{key: row[key] for key in EXTRA_KEYS if key in row}})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels for the port's hot path.
 
   * ``bool_mm`` / ``bool_mm_masked`` -- boolean-semiring product (BFS
-    frontier expansion, ``bfs_batched_dense``), CUDA C++ in
+    frontier expansion, ``bfs_batched_dense``), an int8 tensor-core
+    product on operands packed to one byte per entry, CUDA C++ in
     ``csrc/bool_mm.cu``;
   * ``minplus_mm`` / ``minplus_mm_masked`` -- tropical product (SSSP
     relaxation, ``sssp_batched_dense``), CUDA C++ in ``csrc/minplus_mm.cu``;

@@ -12,9 +12,9 @@ first use, inside the call that launches a kernel, never at import;
 
 Every source exports ``<name>_block_shape(int*)``, which ``bind`` checks
 against the wrapper's tiling, and its entry points, which ``bind`` types.
-The boolean and min-plus sources share two: ``<name>(x, a, out, m, k, n,
+By default those are the min-plus pair ``<name>(x, a, out, m, k, n,
 stream)`` and ``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``;
-the count and attention wrappers pass their own argument types.
+the boolean, count and attention wrappers pass their own argument types.
 """
 from __future__ import annotations
 
@@ -114,7 +114,7 @@ def bind(name: str, blocks, argtypes=None) -> ctypes.CDLL:
     """``load(name)`` with its entry points typed, after checking that the
     library's block shape is the wrapper's ``blocks`` (three ints, for the
     semiring products (BM, BN, BK)).  ``argtypes`` maps each entry point
-    to its argument types; by default the semiring pair ``<name>`` and
+    to its argument types; by default the min-plus pair ``<name>`` and
     ``<name>_masked``.  Every entry point returns a ``cudaError_t``."""
     lib = _bound.get(name)
     if lib is None:

@@ -1,23 +1,27 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of this
 // directory: shared-memory addresses, mbarriers, TMA tile loads, wgmma
-// descriptors and the wgmma instructions they use, and the host-side
-// encoding of a TMA tensor map.
+// descriptors and the wgmma instructions they use (bf16 with f32
+// accumulators, int8 with s32 accumulators), and the host-side encoding of
+// a TMA tensor map.
 //
 // Conventions.  Every operand tile lives in shared memory in the layout a
 // TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes (64
-// bf16), row r at r * 128 bytes with its 16-byte chunk c stored at chunk
-// c ^ (r % 8), each 8-row group a 1024-byte swizzle atom.  Tiles start on a
-// 1024-byte boundary, so the descriptors' base offset is 0.
+// bf16 or 128 int8), row r at r * 128 bytes with its 16-byte chunk c stored
+// at chunk c ^ (r % 8), each 8-row group a 1024-byte swizzle atom.  Tiles
+// start on a 1024-byte boundary, so the descriptors' base offset is 0.
 //
 // * A K-major operand (K contiguous, e.g. the rows of Q, of K, of the count
-//   product's planes) is such a panel of [rows][64 k]; its descriptor has
-//   SBO = 1024 (the next 8 rows) and the next 16 k are 32 bytes further.
+//   product's planes, of the boolean product's packed operands) is such a
+//   panel of [rows][128 bytes of k]; its descriptor has SBO = 1024 (the
+//   next 8 rows) and one wgmma's k-slice (16 bf16 or 32 int8) is 32 bytes,
+//   so the next slice starts 32 bytes further.  8-bit wgmma has no
+//   transposed form: both of its operands are K-major.
 // * An N-major operand (N contiguous, e.g. V as [keys][D]) is a panel of
 //   [k][64 n]; its descriptor has SBO = 1024 (the next 8 k) and LBO = the
 //   distance to the panel of the next 64 n; the next 16 k are 2048 bytes
 //   further.
 //
-// The wgmma accumulator of m64nNk16 is, per warp w of the warpgroup, rows
+// The wgmma accumulator of m64nNk16 (and of the s32 m64nNk32) is, per warp w of the warpgroup, rows
 // 16 w .. 16 w + 15 laid out as N / 8 fragments of mma.m16n8: with g =
 // lane / 4 and q = lane % 4, d[4 j + 0..1] hold row g, columns 8 j + 2 q
 // and + 1; d[4 j + 2..3] hold row g + 8, the same columns.  A register A
@@ -93,6 +97,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
 
 // The box at element coordinates (c0 innermost, c1, c2) of `map` into
 // shared memory at `dst`; completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -145,6 +159,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d[32] = A (64 x 16, shared, K-major) * B (16 x 64, shared; K-major
@@ -233,6 +252,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(kTransB));
 }
 
+// d[64] += A (64 x 32 int8, shared, K-major) * B (32 x 128 int8, shared,
+// K-major), exact in s32.  8-bit wgmma has no transpose flags.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64],
+                                                    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // --------------------------- host: tensor maps ----------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -255,29 +296,46 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (dims[0] contiguous; strides in
-// bytes of dims 1..rank-1) whose box is 64 elements (128 bytes) of dim 0 by
-// box1 of dim 1 by 1 of the rest, 128-byte swizzled; elements outside the
-// tensor load as zeros.  False if libcuda refuses it (e.g. a base or a
-// stride that is not a multiple of 16 bytes).
-inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                          const uint64_t* dims, const uint64_t* strides,
-                          uint32_t box1) {
+// A tensor map of `rank` dimensions of `type` (elements of `elem_bytes`;
+// dims[0] contiguous; strides in bytes of dims 1..rank-1) whose box is 128
+// bytes of dim 0 by box1 of dim 1 by 1 of the rest, 128-byte swizzled;
+// elements outside the tensor load as zeros.  False if libcuda refuses it
+// (e.g. a base or a stride that is not a multiple of 16 bytes).
+inline bool make_map_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                           uint32_t elem_bytes, const void* base, int rank,
+                           const uint64_t* dims, const uint64_t* strides,
+                           uint32_t box1) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t gdim[5], gstride[4];
   cuuint32_t box[5], estride[5];
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
-    box[i] = i == 0 ? 64u : (i == 1 ? box1 : 1u);
+    box[i] = i == 0 ? 128u / elem_bytes : (i == 1 ? box1 : 1u);
     estride[i] = 1;
     if (i > 0) gstride[i - 1] = strides[i - 1];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), gdim, gstride, box, estride,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, rank, const_cast<void*>(base), gdim, gstride, box,
+            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16: a box of 64 elements of dim 0.
+inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          uint32_t box1) {
+  return make_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank,
+                        dims, strides, box1);
+}
+
+// 8-bit (int8 read as uint8: TMA only moves the bytes): a box of 128
+// elements of dim 0.
+inline bool make_map_u8(CUtensorMap* map, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        uint32_t box1) {
+  return make_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rank,
+                        dims, strides, box1);
 }
 
 }  // namespace hopper

@@ -16,8 +16,10 @@ every (slab, block) pair whose contribution is the identity.
 
 ``*_against(a, ...)`` prepares a right operand that stays fixed across many
 products (one per BFS level, relax pass or BC level): it is padded and its
-mask coarsened once, not per product; for the count product on the card it
-is also split once into the kernel's bf16 planes (``count_mm.right_planes``).
+mask coarsened once, not per product; on the card it is also put once
+into the form the kernel reads: the count product's bf16 planes
+(``count_mm.right_planes``), the boolean product's transposed int8 pack
+(``bool_mm.pack_right``).
 
 ``flash_attention`` needs no padding: its kernel masks the ragged edges
 itself, so the wrapper here is the kernel module's entry point as it is.
@@ -127,7 +129,14 @@ def bool_mm_against(a: torch.Tensor, amask: torch.Tensor | None = None,
                     tile: int = 128):
     """``f -> bool_mm(f, a, amask, tile)`` for an adjacency reused across
     the BFS levels."""
-    return _against(_bool, "bool_mm", 0.0, _nonzero, a, amask, tile)
+    return _against(_bool, "bool_mm", 0.0, _nonzero, a, amask, tile,
+                    prepare=_bool_packed)
+
+
+def _bool_packed(ap: torch.Tensor) -> dict:
+    """The boolean kernel reads its right operand packed to int8 and
+    transposed: pack the padded operand once, on the card."""
+    return {"packed": _bool.pack_right(ap)} if ap.is_cuda else {}
 
 
 def minplus_mm_against(w: torch.Tensor, amask: torch.Tensor | None = None,

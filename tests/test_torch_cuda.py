@@ -86,6 +86,94 @@ def test_cuda_bool_mm_matches_plain(cuda_device, s, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 384])
+def test_cuda_bool_mm_row_blocks_ragged_k(cuda_device, m):
+    """One row block (the static mode's M = 128) and three, with K and N
+    ragged (padded by ``ops``) and a band of empty tiles: dense and masked
+    bit-exact, one launch each."""
+    rng = np.random.default_rng(m)
+    k, n = 1000, 300
+    f = (rng.random((m, k)) < 0.05).astype(np.float32)
+    f[m // 2:, :] = 0.0
+    a = (rng.random((k, n)) < 0.05).astype(np.float32)
+    a[:, 100:260] = 0.0
+    fc = torch.tensor(f, device=cuda_device)
+    ac = torch.tensor(a, device=cuda_device)
+    amask = torch.tensor(_tile_occ(a, 128), device=cuda_device)
+    before = dict(tbool.LAUNCHES)
+    got = tops.bool_mm(fc, ac)
+    got_m = tops.bool_mm(fc, ac, amask=amask, tile=128)
+    torch.cuda.synchronize()
+    assert tbool.LAUNCHES["bool_mm"] == before["bool_mm"] + 1
+    assert tbool.LAUNCHES["bool_mm_masked"] == before["bool_mm_masked"] + 1
+    exp = ((f @ a) > 0).astype(np.float32)
+    assert np.array_equal(got.cpu().numpy(), exp)
+    assert np.array_equal(got_m.cpu().numpy(), exp)
+    assert torch.equal(got, tsem.bool_mm(fc, ac, use_kernel=False))
+
+
+@pytest.mark.cuda
+def test_cuda_bool_mm_counts_past_int8(cuda_device):
+    """A row of all ones across K = 16384 against a column of all ones:
+    a count of 16384, which wraps to 0 in int8 but not in the s32
+    accumulators."""
+    k, n = 16384, 256
+    f = torch.zeros((128, k), device=cuda_device)
+    f[0] = 1.0
+    f[1, 5] = 1.0
+    a = torch.zeros((k, n), device=cuda_device)
+    a[:, 0] = 1.0
+    a[7, 3] = 1.0
+    got = tbool.bool_mm(f, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbool.bool_mm_ref(f, a))
+    assert got[0, 0] == 1.0 and got[0, 3] == 1.0 and got[1, 0] == 1.0
+    assert float(got.sum()) == 3.0
+
+
+@pytest.mark.cuda
+def test_cuda_bool_packs_match_plain(cuda_device):
+    """The two pack kernels equal their plain versions, on values other
+    than 0 and 1 (negative, -0.0, fractions) too."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn((192, 320), generator=g)
+    x[x.abs() < 0.8] = 0.0
+    x[0, :8] = -0.0
+    xc = x.to(cuda_device)
+    left = tbool.pack_left(xc)
+    right = tbool.pack_right(xc)
+    torch.cuda.synchronize()
+    assert left.dtype == right.dtype == torch.int8
+    assert torch.equal(left.cpu(), tbool.pack_left_plain(x))
+    assert torch.equal(right.cpu(), tbool.pack_right_plain(x))
+    assert right.shape == (320, 192) and right.is_contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_bool_mm_refuses_bad_packed(cuda_device):
+    """A packed right operand that TMA cannot read (a base off 16 bytes,
+    not contiguous, the wrong type or shape) raises, launching nothing."""
+    bm, bn, bk = tbool.BM, tbool.BN, tbool.BK
+    f = torch.zeros((bm, bk), device=cuda_device)
+    a = torch.zeros((bk, bn), device=cuda_device)
+    buf = torch.zeros(bn * bk + 16, dtype=torch.int8, device=cuda_device)
+    bad = [buf[1:1 + bn * bk].view(bn, bk),
+           torch.zeros((bk, bn), dtype=torch.int8, device=cuda_device).t(),
+           torch.zeros((bn, bk), dtype=torch.uint8, device=cuda_device),
+           torch.zeros((bn, 2 * bk), dtype=torch.int8, device=cuda_device)]
+    before = dict(tbool.LAUNCHES)
+    for packed in bad:
+        with pytest.raises(ValueError, match="16-byte"):
+            tbool.bool_mm(f, a, packed=packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        tbool.bool_mm_masked(f, a, torch.ones((1, 1), dtype=torch.int32,
+                                              device=cuda_device),
+                             torch.ones((1, 1), dtype=torch.int32,
+                                        device=cuda_device), packed=bad[0])
+    assert tbool.LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s,k,n", SHAPES)
 def test_cuda_minplus_mm_matches_plain(cuda_device, s, k, n):
     rng = np.random.default_rng(5 * s + k + n)

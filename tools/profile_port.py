@@ -15,6 +15,11 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
   * ``sssp_batched_dense masked`` -- one batched SSSP at the batched
     phase's shape (``SRC_CHUNK`` sources of the initial R-MAT state, the
     tile view's occupancy as the mask);
+  * ``static bfs query`` -- one BFS query of the Section 5 workload's
+    static mode as ``run_mix`` runs it (``chip_smoke.py`` 3c's graph and
+    the first query source of its BFS op stream): ``dense_views`` of the
+    snapshot, then ``bfs_batched_dense`` from one source, which pads it to
+    one row block (M = 128) and packs the adjacency once;
   * ``<arch> prefill`` / ``<arch> decode x N`` -- for each model of
     ``chip_smoke.LM_ARCHS`` at its serving shape (``LM_BATCH`` prompts of
     ``LM_PROMPT`` tokens, seed 0 weights): one prefill after an unprofiled
@@ -157,10 +162,39 @@ def main() -> int:
           f"({reads / max(passes, 1):.2f} per pass)", flush=True)
     del state, svc, view, w, alive, srcs
     torch.cuda.empty_cache()
+    out.append(static_bfs_window(torch, np, smoke))
+    torch.cuda.empty_cache()
     out += lm_windows(torch, smoke)
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
     return 0
+
+
+def static_bfs_window(torch, np, smoke):
+    """One static-mode BFS query (M = 128), after an unprofiled warm-up
+    query from the same source."""
+    from repro_torch.bench import workload as wl
+    from repro_torch.core import bfs_batched_dense, dense_views
+    from repro_torch.kernels import bool_mm as kb
+
+    graph = wl.load_graph(smoke.N_VERTICES, device="cuda")
+    ops = wl.make_ops(np.random.default_rng(smoke.SEED), smoke.WORKLOAD_OPS,
+                      smoke.N_VERTICES, smoke.WORKLOAD_MIX)
+    src = next(op[1] for op in ops if op[0] == "QUERY")
+    srcs = torch.tensor([src], dtype=torch.int32, device="cuda")
+
+    def query():
+        am, _, alive = dense_views(graph)
+        return bfs_batched_dense(am, srcs, alive)
+
+    query()
+    before = kb.LAUNCHES["bool_mm"]
+    row = profile_window(torch, "static bfs query", query)
+    levels = kb.LAUNCHES["bool_mm"] - before
+    row.update(source=src, levels=levels)
+    print(f"  source {src}: {levels} levels (bool_mm launches, M = 128)",
+          flush=True)
+    return row
 
 
 def lm_windows(torch, smoke):
