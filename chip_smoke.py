@@ -39,7 +39,9 @@ exit code:
                  FP32 bound beside it; the boolean products on the packed
                  int8 adjacency they read).  bool_mm is also held and timed
                  at the static mode's shape (STATIC_ROWS rows), and its two
-                 packs are timed on their own;
+                 packs are timed on their own; minplus_mm at the static
+                 mode's call, one row of the widest SSSP pass through
+                 ops.minplus_mm_against, bounded on that one row;
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -109,7 +111,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # blocks do.
 WORK_BM, WORK_BN, WORK_BK = 64, 64, 32
 PLAIN_ROWS = 256        # rows of the min-plus products its plain version runs
-STATIC_ROWS = 128       # the static mode's product: one source, one row block
+STATIC_ROWS = 128       # the static mode's boolean product: one row block
 N_SAMPLES = 8           # sources of the batched queries held against COO
 WORKLOAD_OPS, WORKLOAD_MIX, UPDATE_BATCH = 45, (0.4, 0.1, 0.5), 8
 KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
@@ -650,8 +652,10 @@ def main_shape_traversal(torch, state, view, errs):
 
     am_b = kops._coarsen_mask(view.occ, view.tile, kb.BK, V // kb.BK, kb.BN,
                               V // kb.BN)
+    # the min-plus mask as ops.minplus_mm_against narrows it, once
     am_m = kops._coarsen_mask(view.occ, view.tile, kmp.BK, V // kmp.BK,
-                              kmp.BN, V // kmp.BN)
+                              kmp.BN, V // kmp.BN) & kops.minplus_live_blocks(
+                                  big)
     # the adjacency packed once, as ops.bool_mm_against does
     apk = kb.pack_right(a)
     if not torch.equal(apk, kb.pack_right_plain(a)):
@@ -689,6 +693,13 @@ def main_shape_traversal(torch, state, view, errs):
         errs.check(torch, "minplus_mm_masked", masked_k, dense_k, True,
                    f"main path, {label}, masked == dense")
     del dense_k, masked_k
+    # the static mode's call: one source's row, padded to the row granule
+    d1 = sssp_cap.wide[:1].contiguous()
+    static_mm = kops.minplus_mm_against(big)
+    errs.check(torch, "minplus_mm", static_mm(d1),
+               kmp.minplus_mm_plain(d1, big), True,
+               f"static call 1x{V}x{V} through ops, pass "
+               f"{sssp_cap.wide_level} row 0")
 
     f, d = bfs_cap.wide, sssp_cap.wide
     fm = kops._slab_mask(f, kb.BM, kb.BK, _nonzero)
@@ -696,10 +707,18 @@ def main_shape_traversal(torch, state, view, errs):
     dr, dmr = d[:R].contiguous(), dm[:R // kmp.BM]
     bool_rows = bool_kernel_rows(torch, f, a, apk, fm, am_b)
     del apk
+    dense = kernel_row(torch, "minplus_mm", lambda: kmp.minplus_mm(d, big),
+                       lambda: kmp.minplus_mm_plain(dr, big),
+                       dense_work(S, V, V), FP32_NONFMA, plain_rows=R)
+    log("  static call, one row through ops.minplus_mm_against:")
+    static = kernel_row(torch, "minplus_mm", lambda: static_mm(d1),
+                        lambda: kmp.minplus_mm_plain(d1, big),
+                        dense_work(1, V, V), FP32_NONFMA)
+    dense["static"] = {key: static[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    dense["static"]["m"] = 1
     return bool_rows + [
-        kernel_row(torch, "minplus_mm", lambda: kmp.minplus_mm(d, big),
-                   lambda: kmp.minplus_mm_plain(dr, big),
-                   dense_work(S, V, V), FP32_NONFMA, plain_rows=R),
+        dense,
         kernel_row(torch, "minplus_mm_masked",
                    lambda: kmp.minplus_mm_masked(d, big, dm, am_m),
                    lambda: kmp.minplus_mm_masked_plain(dr, big, dmr, am_m),

@@ -68,6 +68,13 @@ def check_masks(name: str, xmask: torch.Tensor, amask: torch.Tensor,
             f"({grid[0]}, {grid[2]})/({grid[2]}, {grid[1]})")
 
 
+def aligned_f32(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned base (the kernels read float4s
+    and copy 16-byte chunks)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def launch(name: str, fn, *args) -> None:
     """Call a C launcher on PyTorch's current stream; raise if the launch
     was refused (it returns the launch's ``cudaError_t``)."""

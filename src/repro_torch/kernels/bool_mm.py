@@ -31,8 +31,8 @@ import ctypes
 import torch
 
 from . import build
-from .backend import check_masks, check_operands, launch, masked_plain, \
-    on_cuda
+from .backend import aligned_f32, check_masks, check_operands, launch, \
+    masked_plain, on_cuda
 from .ref import bool_mm_ref  # the dense kernel's plain version
 
 # The CUDA kernel's block shape (csrc/bool_mm.cu; checked against the
@@ -73,12 +73,6 @@ def pack_right_plain(a: torch.Tensor) -> torch.Tensor:
     return (a != 0).t().to(torch.int8).contiguous()
 
 
-def _aligned_f32(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned base (the packs read float4s)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def pack_left(f: torch.Tensor) -> torch.Tensor:
     """``pack_left_plain`` by the kernel's own pack on a CUDA tensor (the
     one ``bool_mm`` runs on every call; this entry times it alone)."""
@@ -88,7 +82,7 @@ def pack_left(f: torch.Tensor) -> torch.Tensor:
     if (m * k) % 16:
         raise ValueError(f"bool_mm.pack_left: {m} x {k} entries are not a "
                          f"multiple of 16")
-    f = _aligned_f32(f.float())
+    f = aligned_f32(f.float())
     out = torch.empty((m, k), dtype=torch.int8, device=f.device)
     launch("bool_mm_pack_left", _lib().bool_mm_pack_left, f.data_ptr(),
            out.data_ptr(), m, k)
@@ -104,7 +98,7 @@ def pack_right(a: torch.Tensor) -> torch.Tensor:
     if k % 64 or n % 64:
         raise ValueError(f"bool_mm.pack_right: ({k}, {n}) is not a multiple "
                          f"of 64 each way")
-    a = _aligned_f32(a.float())
+    a = aligned_f32(a.float())
     out = torch.empty((n, k), dtype=torch.int8, device=a.device)
     launch("bool_mm_pack_right", _lib().bool_mm_pack_right, a.data_ptr(),
            out.data_ptr(), k, n)
@@ -145,7 +139,7 @@ def _launch_args(f: torch.Tensor, a: torch.Tensor, packed, m, kdim, n):
                          f"{packed.dtype} is not a contiguous, 16-byte "
                          f"aligned pack_right of a ({kdim}, {n}) operand on "
                          f"{f.device}")
-    f = _aligned_f32(f)
+    f = aligned_f32(f)
     scratch = torch.empty((m, kdim), dtype=torch.int8, device=f.device)
     out = torch.empty((m, n), dtype=torch.float32, device=f.device)
     return f, scratch, packed, out

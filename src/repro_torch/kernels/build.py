@@ -11,10 +11,8 @@ first use, inside the call that launches a kernel, never at import;
 ``load_all`` starts one ``nvcc`` per source at once.
 
 Every source exports ``<name>_block_shape(int*)``, which ``bind`` checks
-against the wrapper's tiling, and its entry points, which ``bind`` types.
-By default those are the min-plus pair ``<name>(x, a, out, m, k, n,
-stream)`` and ``<name>_masked(x, a, out, xmask, amask, m, k, n, stream)``;
-the boolean, count and attention wrappers pass their own argument types.
+against the wrapper's tiling, and its entry points, which ``bind`` types
+from the argument types each wrapper passes.
 """
 from __future__ import annotations
 
@@ -35,7 +33,6 @@ _loaded: dict = {}
 _bound: dict = {}
 build_logs: dict = {}  # {name: nvcc output} for the sources built here
 
-_P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
@@ -110,12 +107,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, blocks, argtypes=None) -> ctypes.CDLL:
+def bind(name: str, blocks, argtypes) -> ctypes.CDLL:
     """``load(name)`` with its entry points typed, after checking that the
     library's block shape is the wrapper's ``blocks`` (three ints, for the
     semiring products (BM, BN, BK)).  ``argtypes`` maps each entry point
-    to its argument types; by default the min-plus pair ``<name>`` and
-    ``<name>_masked``.  Every entry point returns a ``cudaError_t``."""
+    to its argument types.  Every entry point returns a ``cudaError_t``."""
     lib = _bound.get(name)
     if lib is None:
         lib = load(name)
@@ -127,10 +123,6 @@ def bind(name: str, blocks, argtypes=None) -> ctypes.CDLL:
         if tuple(shape) != tuple(blocks):
             raise RuntimeError(f"csrc/{name}.cu blocks {tuple(shape)} != "
                                f"the wrapper's {tuple(blocks)}")
-        if argtypes is None:
-            argtypes = {name: [_P, _P, _P, _I, _I, _I, _P],
-                        f"{name}_masked": [_P, _P, _P, _P, _P, _I, _I, _I,
-                                           _P]}
         for entry, types in argtypes.items():
             fn = getattr(lib, entry)
             fn.argtypes = types

@@ -3,12 +3,15 @@
 Port of ``repro.kernels.minplus_mm``.  ``minplus_mm`` and
 ``minplus_mm_masked`` are the raw entry points: operands must already be
 multiples of the CUDA kernel's block shape (``BM x BK`` times ``BK x BN``;
-the ``ops`` wrapper pads with +inf, the identity).  A CUDA tensor launches
-the hand-written kernel in ``csrc/minplus_mm.cu`` (built with nvcc at first
-use, bound with ctypes); a CPU tensor runs the plain PyTorch version beside
-it.  There is no fallback from one to the other.  Every candidate
-``d + w`` is one rounded f32 add and ``min`` is exact, so the kernel
-equals its plain version bit for bit.
+the ``ops`` wrapper pads with +inf, the identity).  ``BM`` = 8 is a row
+granule, not a tile: the kernel runs few rows (the static query's one
+source) in a skinny form that splits K across CTAs, and many rows in a
+wide form of 128 x 128 tiles (``csrc/minplus_mm.cu``).  A CUDA tensor
+launches the hand-written kernel (built with nvcc at first use, bound with
+ctypes; the wrapper allocates the scratch it asks for); a CPU tensor runs
+the plain PyTorch version beside it.  There is no fallback from one to the
+other.  Every candidate ``d + w`` is one rounded f32 add and ``min`` is
+exact, so the kernel equals its plain version bit for bit.
 
 The plain versions work k-step by k-step (the reference oracle
 ``ref.minplus_mm_ref`` broadcasts the whole ``S x K x N`` sum, which no
@@ -19,17 +22,27 @@ to it.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from . import build
-from .backend import check_masks, check_operands, launch, masked_plain, \
-    on_cuda
+from .backend import aligned_f32, check_masks, check_operands, launch, \
+    masked_plain, on_cuda
 
 # The CUDA kernel's block shape (csrc/minplus_mm.cu; checked against the
-# library's own minplus_mm_block_shape when it loads).
-BM, BN, BK = 128, 128, 16
+# library's own minplus_mm_block_shape when it loads): the row granule,
+# the columns of a CTA and the k-step of the ring and of the masks.
+BM, BN, BK = 8, 128, 16
+
+# minplus_mm(d, w, out, scratch, m, k, n, stream) and the masked form with
+# dmask, wmask after scratch; minplus_mm_scratch(m, k, n, &floats).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {"minplus_mm": [_P, _P, _P, _P, _I, _I, _I, _P],
+            "minplus_mm_masked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "minplus_mm_scratch": [_I, _I, _I,
+                                   ctypes.POINTER(ctypes.c_longlong)]}
 
 LAUNCHES = {"minplus_mm": 0, "minplus_mm_masked": 0}
 
@@ -40,7 +53,19 @@ def reset_launches() -> None:
 
 
 def _lib():
-    return build.bind("minplus_mm", (BM, BN, BK))
+    return build.bind("minplus_mm", (BM, BN, BK), ARGTYPES)
+
+
+def _scratch(lib, m: int, kdim: int, n: int,
+             device: torch.device) -> torch.Tensor:
+    """The device scratch the kernel asks for at these shapes: d
+    transposed for the wide form, the K splits' partial minima."""
+    floats = ctypes.c_longlong(0)
+    err = lib.minplus_mm_scratch(m, kdim, n, ctypes.byref(floats))
+    if err != 0:
+        raise RuntimeError(f"minplus_mm: shapes ({m}, {kdim}) x ({kdim}, "
+                           f"{n}) refused (cudaError_t {err})")
+    return torch.empty((floats.value,), dtype=torch.float32, device=device)
 
 
 def _relax(out: torch.Tensor, dk: torch.Tensor,
@@ -79,10 +104,12 @@ def minplus_mm(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, kdim, n = check_operands("minplus_mm", d, w, BM, BK, BN)
     if not on_cuda(d, w):
         return minplus_mm_plain(d, w)
-    d, w = d.contiguous(), w.contiguous()
+    d, w = aligned_f32(d), aligned_f32(w)
+    lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=d.device)
-    launch("minplus_mm", _lib().minplus_mm, d.data_ptr(), w.data_ptr(),
-           out.data_ptr(), m, kdim, n)
+    scratch = _scratch(lib, m, kdim, n, d.device)
+    launch("minplus_mm", lib.minplus_mm, d.data_ptr(), w.data_ptr(),
+           out.data_ptr(), scratch.data_ptr(), m, kdim, n)
     LAUNCHES["minplus_mm"] += 1
     return out
 
@@ -91,22 +118,27 @@ def minplus_mm_masked(d: torch.Tensor, w: torch.Tensor, dmask: torch.Tensor,
                       wmask: torch.Tensor) -> torch.Tensor:
     """Tile-skipping min-plus product.
 
-    ``dmask``: int32 [S/BM, K/BK] -- nonzero iff the d slab has a finite
-    entry; ``wmask``: int32 [K/BK, N/BN] -- nonzero iff the w block has a
-    finite entry.  A zero mask MUST imply an all-+inf block for the result
-    to equal the dense product; a fully skipped output tile is +inf.
+    ``dmask``: int32 [S/BM, K/BK] -- nonzero iff the d slab (one row
+    granule by one k-step) has a finite entry; ``wmask``: int32 [K/BK,
+    N/BN] -- nonzero iff the w block has a finite entry.  The kernel skips
+    exactly the (granule, k-step, column panel) blocks where either is
+    zero, as ``minplus_mm_masked_plain`` does.  A zero mask MUST imply an
+    all-+inf block for the result to equal the dense product; a fully
+    skipped output tile is +inf.
     """
     m, kdim, n = check_operands("minplus_mm_masked", d, w, BM, BK, BN)
     check_masks("minplus_mm_masked", dmask, wmask, (m // BM, n // BN,
                                                     kdim // BK))
     if not on_cuda(d, w, dmask, wmask):
         return minplus_mm_masked_plain(d, w, dmask, wmask)
-    d, w = d.contiguous(), w.contiguous()
+    d, w = aligned_f32(d), aligned_f32(w)
     dmask = dmask.to(torch.int32).contiguous()
     wmask = wmask.to(torch.int32).contiguous()
+    lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=d.device)
-    launch("minplus_mm_masked", _lib().minplus_mm_masked, d.data_ptr(),
-           w.data_ptr(), out.data_ptr(), dmask.data_ptr(), wmask.data_ptr(),
-           m, kdim, n)
+    scratch = _scratch(lib, m, kdim, n, d.device)
+    launch("minplus_mm_masked", lib.minplus_mm_masked, d.data_ptr(),
+           w.data_ptr(), out.data_ptr(), scratch.data_ptr(), dmask.data_ptr(),
+           wmask.data_ptr(), m, kdim, n)
     LAUNCHES["minplus_mm_masked"] += 1
     return out

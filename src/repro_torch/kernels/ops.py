@@ -19,7 +19,9 @@ products (one per BFS level, relax pass or BC level): it is padded and its
 mask coarsened once, not per product; on the card it is also put once
 into the form the kernel reads: the count product's bf16 planes
 (``count_mm.right_planes``), the boolean product's transposed int8 pack
-(``bool_mm.pack_right``).
+(``bool_mm.pack_right``).  The min-plus product's coarsened mask is also
+narrowed once to the weights' own live blocks at the kernel's ``(BK, BN)``
+grain (``minplus_live_blocks``), on whatever device the weights are.
 
 ``flash_attention`` needs no padding: its kernel masks the ragged edges
 itself, so the wrapper here is the kernel module's entry point as it is.
@@ -97,11 +99,13 @@ def _nonzero(x: torch.Tensor) -> torch.Tensor:
 
 def _against(kern, name: str, identity: float, nonidentity,
              a: torch.Tensor, amask: torch.Tensor | None, tile: int,
-             prepare=None):
+             prepare=None, narrow=None):
     """``x -> name(x, a)`` through ``kern``'s dense or masked entry point,
     with ``a`` padded and ``amask`` coarsened to the kernel's blocks once.
     ``prepare(ap)``, where given, makes once from the padded ``a`` the extra
-    keyword arguments that every call of the entry points gets."""
+    keyword arguments that every call of the entry points gets;
+    ``narrow(ap, am)`` the mask that the masked entry point reads, from the
+    coarsened one."""
     bm, bn, bk = kern.BM, kern.BN, kern.BK
     ap, (_, n) = _pad2(a.float(), bk, bn, identity)
     dense = getattr(kern, name)
@@ -111,6 +115,8 @@ def _against(kern, name: str, identity: float, nonidentity,
         check_amask(name, amask.shape, a.shape[0], a.shape[1], tile)
         am = _coarsen_mask(amask, tile, bk, ap.shape[0] // bk, bn,
                            ap.shape[1] // bn)
+        if narrow is not None:
+            am = narrow(ap, am)
     kw = {} if prepare is None else prepare(ap)
 
     def product(x: torch.Tensor) -> torch.Tensor:
@@ -144,7 +150,23 @@ def minplus_mm_against(w: torch.Tensor, amask: torch.Tensor | None = None,
     """``d -> minplus_mm(d, w, amask, tile)`` for weights reused across the
     relax passes."""
     return _against(_minplus, "minplus_mm", math.inf, torch.isfinite, w,
-                    amask, tile)
+                    amask, tile, narrow=_minplus_exact)
+
+
+def minplus_live_blocks(wp: torch.Tensor) -> torch.Tensor:
+    """int32 [K/BK, N/BN]: 1 where the padded weights' (BK, BN) block of
+    the min-plus kernel holds an entry below +inf (one pass over ``wp``)."""
+    bn, bk = _minplus.BN, _minplus.BK
+    kp, np_ = wp.shape
+    low = wp.reshape(kp // bk, bk, np_ // bn, bn).amin(dim=(1, 3))
+    return (low < math.inf).to(torch.int32)
+
+
+def _minplus_exact(wp: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
+    """The tile occupancy, coarsened to the kernel's (BK, BN) blocks, marks
+    a block live when its 128-tile is; ``w`` stays fixed across the relax
+    passes, so AND it once with the blocks' own occupancy."""
+    return am & minplus_live_blocks(wp)
 
 
 def count_mm_against(a: torch.Tensor, amask: torch.Tensor | None = None,

@@ -240,3 +240,91 @@ def test_semiring_dense_routes_agree_with_reference():
                               .numpy(), exp_m), uk
         prod = tsem.minplus_mm_against(_t(w), use_kernel=uk)
         assert np.array_equal(prod(_t(d)).numpy(), exp_m), uk
+
+
+# Row counts across the min-plus row granule (BM = 8) and across the wide
+# form's 128-row tile: one row (the static query), a granule and its
+# neighbours, and the ragged row blocks on either side of 128.
+GRANULE_ROWS = [1, 7, 8, 9, 127, 129, 136]
+
+
+@pytest.mark.parametrize("m", GRANULE_ROWS)
+def test_minplus_mm_row_counts_equal_reference(m):
+    """``ops.minplus_mm`` dense and masked at row counts around the granule
+    equal the Pallas kernels (interpret mode) bit for bit, negative weights
+    included."""
+    tile, k, n = 16, 80, 40
+    rng = np.random.default_rng(100 + m)
+    d = _dist(rng, m, k, 0.4) * 6 - 1
+    w = _sparse_tiled(k, n, tile, 0.5, identity_inf=True, rng=rng)
+    w = np.where(np.isfinite(w), w * 5 - 1, w).astype(np.float32)
+    wmask = _tile_occ(w, tile, identity_inf=True)
+    got = tops.minplus_mm(_t(d), _t(w)).numpy()
+    assert got.shape == (m, n)
+    assert np.array_equal(got, _j(jops.minplus_mm, d, w))
+    got_m = tops.minplus_mm(_t(d), _t(w), amask=_t(wmask), tile=tile).numpy()
+    assert np.array_equal(got_m, _j(jops.minplus_mm, d, w, amask=wmask,
+                                    tile=tile))
+    assert np.array_equal(got_m, got)
+
+
+@pytest.mark.parametrize("granules", [2, 17])
+def test_minplus_masked_plain_skips_per_row_granule(granules):
+    """A (deliberately wrong) zero ``dmask`` entry drops exactly its own
+    row granule's k-step, also where the granule shares a 128-row tile
+    with live ones: the block grid is (BM = 8 rows, BK, BN)."""
+    bm, bn, bk = tmin.BM, tmin.BN, tmin.BK
+    m, kb_n, nb_n = granules * bm, 3, 2
+    rng = np.random.default_rng(granules)
+    x = _dist(rng, m, kb_n * bk, 0.2) * 4 - 1
+    a = _dist(rng, kb_n * bk, nb_n * bn, 0.3)
+    xmask = (rng.random((granules, kb_n)) < 0.6).astype(np.int32)
+    amask = np.ones((kb_n, nb_n), np.int32)
+    amask[2, 0] = 0
+    exp = np.full((m, nb_n * bn), np.inf, np.float32)
+    for g in range(granules):
+        rows = slice(g * bm, (g + 1) * bm)
+        for j in range(nb_n):
+            cols = slice(j * bn, (j + 1) * bn)
+            for kb in range(kb_n):
+                if xmask[g, kb] and amask[kb, j]:
+                    ks = slice(kb * bk, (kb + 1) * bk)
+                    exp[rows, cols] = np.minimum(exp[rows, cols], np.min(
+                        x[rows, ks, None] + a[None, ks, cols], axis=1))
+    got = tmin.minplus_mm_masked(_t(x), _t(a), _t(xmask), _t(amask))
+    assert np.array_equal(got.numpy(), exp)
+    assert tmin.LAUNCHES == {"minplus_mm": 0, "minplus_mm_masked": 0}
+
+
+@pytest.mark.parametrize("tile,density", [(32, 0.6), (128, 1.0), (16, 0.3)])
+def test_minplus_live_blocks_keep_every_finite_weight(tile, density):
+    """The mask that ``ops.minplus_mm_against`` narrows once per operand
+    (coarsened tile occupancy AND the weights' own (BK, BN) blocks) never
+    clears a block that holds a finite weight, clears the all-+inf blocks
+    that the coarse occupancy keeps, and leaves the product the dense one."""
+    bn, bk = tmin.BN, tmin.BK
+    k, n = 160, 300
+    rng = np.random.default_rng(tile)
+    w = _sparse_tiled(k, n, tile, density, identity_inf=True, rng=rng)
+    w[rng.random((k, n)) < 0.97] = np.inf  # sparse inside the live tiles
+    w[bk:2 * bk] = np.inf  # a k-step of no edges inside live 32/128-tiles
+    w[5, 7] = -3.0         # a lone negative weight
+    wmask = _tile_occ(w, tile, identity_inf=True)
+    wp, _ = tops._pad2(_t(w), bk, bn, np.inf)
+    kp, np_ = wp.shape
+    finite = np.isfinite(wp.numpy()).reshape(kp // bk, bk, np_ // bn, bn)
+    has = finite.any(axis=(1, 3))
+    live = tops.minplus_live_blocks(wp)
+    assert live.dtype == torch.int32
+    assert np.array_equal(live.numpy() != 0, has)
+    coarse = tops._coarsen_mask(_t(wmask), tile, bk, kp // bk, bn, np_ // bn)
+    narrowed = tops._minplus_exact(wp, coarse).numpy()
+    assert (narrowed[has] != 0).all()
+    assert (narrowed <= coarse.numpy()).all()
+    if tile > bk:
+        assert not narrowed[1].any() and coarse.numpy()[1].any()
+    else:  # 16-tiles already give the k-steps exactly
+        assert np.array_equal(narrowed, coarse.numpy())
+    d = _dist(rng, 24, k, 0.3)
+    prod = tops.minplus_mm_against(_t(w), amask=_t(wmask), tile=tile)
+    assert np.array_equal(prod(_t(d)).numpy(), _j(jref.minplus_mm_ref, d, w))

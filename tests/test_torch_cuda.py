@@ -31,8 +31,12 @@ def _tile_occ(a, tile, identity=0.0):
     return live.any(axis=(1, 3)).astype(np.int32)
 
 
-def _minplus_np(d, w):
-    return np.min(d[:, :, None] + w[None, :, :], axis=1)
+def _minplus_np(d, w, chunk=256):
+    out = np.full((d.shape[0], w.shape[1]), np.inf, np.float32)
+    for k0 in range(0, d.shape[1], chunk):
+        out = np.minimum(out, np.min(d[:, k0:k0 + chunk, None]
+                                     + w[None, k0:k0 + chunk, :], axis=1))
+    return out
 
 
 @pytest.fixture
@@ -225,6 +229,98 @@ def test_cuda_masked_kernels_skip_block_for_block(cuda_device, mod, name,
     torch.cuda.synchronize()
     assert torch.equal(got, exp)
     assert bool((got[:, bn:] == identity).all())
+
+
+# Row counts of the min-plus kernel's two forms: skinny below 88 rows (one
+# 8-row granule per CTA) and wide from 88 (128-row tiles, ragged at 88,
+# 120, 136 and 264).  K = 4096 is 256 k-steps: both forms split K there,
+# since the grid alone is a few CTAs.
+MINPLUS_ROWS = [8, 16, 80, 88, 120, 128, 136, 264]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", MINPLUS_ROWS)
+def test_cuda_minplus_mm_skinny_and_wide(cuda_device, m):
+    """Both forms, dense and masked, with split K, against numpy: negative
+    weights, rows and columns of +inf, one launch per call."""
+    k, n, tile = 4096, 256, 128
+    rng = np.random.default_rng(m)
+    d = rng.random((m, k)).astype(np.float32) * 8 - 1
+    d[rng.random((m, k)) < 0.5] = np.inf
+    d[m // 2] = np.inf                       # a source that reaches nothing
+    w = (rng.integers(-2, 7, (k, n))).astype(np.float32)
+    w[rng.random((k, n)) < 0.99] = np.inf
+    w[:, 3] = np.inf                         # a vertex with no in-edges
+    w[:, 200:] = np.inf                      # a column tile of no edges
+    w[2048:2304] = np.inf                    # 16 k-steps of no edges
+    dc = torch.tensor(d, device=cuda_device)
+    wc = torch.tensor(w, device=cuda_device)
+    amask = torch.tensor(_tile_occ(w, tile, np.inf), device=cuda_device)
+    before = dict(tmin.LAUNCHES)
+    got = tops.minplus_mm(dc, wc)
+    got_m = tops.minplus_mm(dc, wc, amask=amask, tile=tile)
+    torch.cuda.synchronize()
+    assert tmin.LAUNCHES["minplus_mm"] == before["minplus_mm"] + 1
+    assert (tmin.LAUNCHES["minplus_mm_masked"]
+            == before["minplus_mm_masked"] + 1)
+    exp = _minplus_np(d, w)
+    assert np.isfinite(exp).any() and np.isposinf(exp[m // 2]).all()
+    assert np.array_equal(got.cpu().numpy(), exp)
+    assert np.array_equal(got_m.cpu().numpy(), exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granules", [2, 17, 33])
+def test_cuda_minplus_masked_skips_per_row_granule(cuda_device, granules):
+    """A deliberately wrong dmask at the 8-row granule: skinny (2 granules)
+    and wide (17 and 33: ragged 128-row tiles whose granules have mixed
+    bits) skip exactly the plain version's blocks."""
+    bm, bn, bk = tmin.BM, tmin.BN, tmin.BK
+    m, nbk, nbn = granules * bm, 24, 2
+    g = torch.Generator(device="cpu").manual_seed(granules)
+    x = torch.rand((m, nbk * bk), generator=g) * 4 - 1
+    x[torch.rand(x.shape, generator=g) < 0.2] = float("inf")
+    a = torch.rand((nbk * bk, nbn * bn), generator=g)
+    a[torch.rand(a.shape, generator=g) < 0.5] = float("inf")
+    xm = (torch.rand((granules, nbk), generator=g) < 0.6).to(torch.int32)
+    am = (torch.rand((nbk, nbn), generator=g) < 0.8).to(torch.int32)
+    args = [t.to(cuda_device) for t in (x, a, xm, am)]
+    before = tmin.LAUNCHES["minplus_mm_masked"]
+    got = tmin.minplus_mm_masked(*args)
+    exp = tmin.minplus_mm_masked_plain(*args)
+    torch.cuda.synchronize()
+    assert tmin.LAUNCHES["minplus_mm_masked"] == before + 1
+    assert torch.equal(got, exp)
+    assert not torch.equal(got, tmin.minplus_mm_plain(*args[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 128])
+def test_cuda_minplus_mm_zero_ties(cuda_device, m):
+    """Outputs whose least candidates are +0 (1 + -1, -0 + +0) and -0
+    (-0 + -0), the -0 first in column 0 and last in column 1, in K splits
+    far apart: every form writes -0 (fminf takes -0 as the smaller), so the
+    zero's sign does not depend on the order of the candidates."""
+    k, n = 4096, 128
+    inf = float("inf")
+    d = torch.full((m, k), inf)
+    d[:, 0] = -0.0
+    d[:, 4000] = 1.0
+    d[:, 4001] = -0.0
+    w = torch.full((k, n), inf)
+    w[0, 0], w[4000, 0] = -0.0, -1.0   # column 0: -0 at k 0, +0 at k 4000
+    w[0, 1], w[4001, 1] = 0.0, -0.0    # column 1: +0 at k 0, -0 at k 4001
+    dc, wc = d.to(cuda_device), w.to(cuda_device)
+    ones = torch.ones((m // tmin.BM, k // tmin.BK), dtype=torch.int32,
+                      device=cuda_device)
+    wones = torch.ones((k // tmin.BK, n // tmin.BN), dtype=torch.int32,
+                       device=cuda_device)
+    neg_zero = torch.tensor(-0.0).view(torch.int32).item()
+    for got in (tmin.minplus_mm(dc, wc),
+                tmin.minplus_mm_masked(dc, wc, ones, wones)):
+        bits = got.cpu().view(torch.int32)
+        assert (bits[:, :2] == neg_zero).all(), bits[:2, :2]
+        assert torch.isinf(got[:, 2:]).all()
 
 
 def _boundary_counts(rng, s, k):

@@ -20,6 +20,9 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
     the first query source of its BFS op stream): ``dense_views`` of the
     snapshot, then ``bfs_batched_dense`` from one source, which pads it to
     one row block (M = 128) and packs the adjacency once;
+  * ``static sssp query`` -- the same for SSSP: ``dense_views``, then
+    ``sssp_batched_dense`` from that source, one ``minplus_mm`` of its
+    distance row (padded to the row granule) per relax pass;
   * ``<arch> prefill`` / ``<arch> decode x N`` -- for each model of
     ``chip_smoke.LM_ARCHS`` at its serving shape (``LM_BATCH`` prompts of
     ``LM_PROMPT`` tokens, seed 0 weights): one prefill after an unprofiled
@@ -162,38 +165,45 @@ def main() -> int:
           f"({reads / max(passes, 1):.2f} per pass)", flush=True)
     del state, svc, view, w, alive, srcs
     torch.cuda.empty_cache()
-    out.append(static_bfs_window(torch, np, smoke))
-    torch.cuda.empty_cache()
+    for query in ("bfs", "sssp"):
+        out.append(static_window(torch, np, smoke, query))
+        torch.cuda.empty_cache()
     out += lm_windows(torch, smoke)
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
     return 0
 
 
-def static_bfs_window(torch, np, smoke):
-    """One static-mode BFS query (M = 128), after an unprofiled warm-up
-    query from the same source."""
+def static_window(torch, np, smoke, query_name):
+    """One static-mode BFS or SSSP query, after an unprofiled warm-up query
+    from the same source; ``levels`` counts its dense product's launches
+    (BFS levels, SSSP relax passes)."""
     from repro_torch.bench import workload as wl
-    from repro_torch.core import bfs_batched_dense, dense_views
+    from repro_torch.core import (bfs_batched_dense, dense_views,
+                                  sssp_batched_dense)
     from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import minplus_mm as kmp
 
     graph = wl.load_graph(smoke.N_VERTICES, device="cuda")
     ops = wl.make_ops(np.random.default_rng(smoke.SEED), smoke.WORKLOAD_OPS,
                       smoke.N_VERTICES, smoke.WORKLOAD_MIX)
     src = next(op[1] for op in ops if op[0] == "QUERY")
     srcs = torch.tensor([src], dtype=torch.int32, device="cuda")
+    mod, kernel = (kb, "bool_mm") if query_name == "bfs" else (kmp,
+                                                               "minplus_mm")
 
     def query():
-        am, _, alive = dense_views(graph)
-        return bfs_batched_dense(am, srcs, alive)
+        am, wd, alive = dense_views(graph)
+        if query_name == "bfs":
+            return bfs_batched_dense(am, srcs, alive)
+        return sssp_batched_dense(wd, srcs, alive)
 
     query()
-    before = kb.LAUNCHES["bool_mm"]
-    row = profile_window(torch, "static bfs query", query)
-    levels = kb.LAUNCHES["bool_mm"] - before
+    before = mod.LAUNCHES[kernel]
+    row = profile_window(torch, f"static {query_name} query", query)
+    levels = mod.LAUNCHES[kernel] - before
     row.update(source=src, levels=levels)
-    print(f"  source {src}: {levels} levels (bool_mm launches, M = 128)",
-          flush=True)
+    print(f"  source {src}: {levels} {kernel} launches", flush=True)
     return row
 
 
