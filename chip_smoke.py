@@ -75,8 +75,36 @@ exit code:
                  for the MoE model one decode step at a capacity that
                  drops nothing, since the served decode's capacity of 1
                  drops pairs a prefill keeps);
+  3e. options -- GraphService with every option of the reference on
+                 (Telemetry with a JSONL trace, device timer and cost
+                 accounting; adaptive thresholds; ResiliencePolicy
+                 (max_retries=1, allow_stale); the circuit breaker; an
+                 OpJournal with segments; a HeartbeatMonitor; compaction
+                 every 4 commits) over 3a's state (reloaded) and stream,
+                 bc_scores cold and every 4 commits, with faults fired at the
+                 collect points by a seeded FaultPlan.  Every reply must equal
+                 the bare 3a service's at its version (BC delta and the scores
+                 to 1e-5); stats.errors must equal the faults fired, with at
+                 least one retry and one degraded reply, each after a fault of
+                 its own query and naming a version still in the ring;
+                 bc_scores must launch count_mm_masked and trace tile_refresh;
+                 the exposition must validate and a GET /metrics on 127.0.0.1
+                 return its families; obs.report must have a row per kind and
+                 rung that ran; every finished query and collect span must
+                 carry 0 < device_us <= its wall (CUDA events, stream time
+                 host gaps included), and in a round run under
+                 torch.profiler each collect's device_us must cover the
+                 kernels launched inside it.  Then the service is
+                 dropped and recover() rebuilds it from the compaction snapshot
+                 and the journal tail: state, ledger and thresholds equal the
+                 live ones and verify_service finds nothing; a second stream
+                 crashes on a torn barrier and recovers to the last whole one
+                 with the torn batch pending.  Prints p50/p99 per kind and
+                 rung, both streams' walls, the snapshot's bytes and time, the
+                 recovery times, the thresholds and each query's cost dict;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
-                 last line {"ok": true, "device": {...}}.
+                 last line {"ok": true, "device": {...}}.  count_mm_masked's
+                 launches are those of 3a and 3e.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -961,7 +989,7 @@ def main_path(torch, np, state, timings):
     timings[f"bc dense ({SRC_CHUNK} sources)"] = time.perf_counter() - t0
     launches = dict(kc.LAUNCHES)
     log(f"  {checked} ladder answers bit-identical to a fresh recompute")
-    log(f"  ladder tallies {vars(svc.stats)}; bc_scores "
+    log(f"  ladder tallies {svc.stats.as_dict()}; bc_scores "
         f"{svc.bc_scores_stats}")
     log(f"  main-path kernel launches {launches}")
     for name, count in launches.items():
@@ -1307,6 +1335,391 @@ def lm_phase(torch, errs, timings):
     return launches, row
 
 
+# --------------------------------- phase 3e --------------------------------
+
+KINDS = ("bfs", "sssp", "bc")
+SCORES_EVERY = 4        # bc_scores after every 4th commit (cold first)
+COMPACT_EVERY = 4
+SEGMENT_BYTES = 1 << 16
+# Faults at the two collect points: a seeded Bernoulli stream per point.
+# The points' hit sequence is set by the stream's shape alone (which
+# collects have a cached prior), not by the graph, so this seed's firings
+# -- among them a first attempt and its retry failing in one query -- are
+# the same at any size.
+FAULT_SEED, FAULT_RATE = 5, 0.05
+CRASH_COMMITS, CRASH_AT = 3, 2   # the crash stream tears its third barrier
+
+
+# Check 8's profiled round: a collect region's CUDA-event time must cover
+# the kernels the profiler puts inside it, within 2% + 2 us for the two
+# clocks (CUPTI's kernel times against the events' stream times).
+REGION_COVER = (1.02, 2.0)
+
+
+def collect_kernel_us(torch, fn):
+    """Run ``fn`` under ``torch.profiler``; returns, in launch order, one
+    ``(kind, device us)`` per ``collect:<kind>`` range the device timer
+    opened: the summed device time of the kernels launched inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if DEV == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CPU
+                   and e.name.startswith("collect:")),
+                  key=lambda e: e.time_range.start)
+    return [(e.name[len("collect:"):],
+             float(e.device_time_total if hasattr(e, "device_time_total")
+                   else e.cuda_time_total)) for e in evts]
+
+
+def same_result(torch, got, exp):
+    """Bit for bit, BC ``delta`` to TOL."""
+    for name, a, b in zip(type(exp)._fields, got, exp):
+        ok = (torch.allclose(a, b, **TOL) if name == "delta"
+              else a.dtype == b.dtype and torch.equal(a, b))
+        if not ok:
+            return False
+    return True
+
+
+def options_stream(torch, svc, stream, sources, plan, checks):
+    """3a's stream through the service with every option on, under
+    ``plan``: ``[(kind, src, mode, reply or None, faults fired)]`` and
+    the bc_scores outputs by version.  A reply that claims a retry or a
+    degraded answer must follow a fault fired in its own query, and a
+    degraded reply's version must still be in the ring."""
+    from repro_torch.kernels import count_mm as kc
+    from repro_torch.resil import InjectedFault, fault_scope
+
+    out, scores, launches, wall = [], {}, 0, 0.0
+
+    def bc_scores():
+        nonlocal launches
+        kc.reset_launches()
+        s, v = svc.bc_scores(src_chunk=SRC_CHUNK)
+        torch.cuda.synchronize()
+        launches += kc.LAUNCHES["count_mm_masked"]
+        scores[v] = s
+
+    bc_scores()
+    with fault_scope(plan):
+        for i, ops in enumerate(stream):
+            t0 = time.perf_counter()
+            svc.submit_many(ops)
+            svc.flush()
+            for j, src in enumerate(sources):
+                for kind in KINDS:
+                    mode = "cn" if j == i % len(sources) else "icn"
+                    fired = plan.fired
+                    try:
+                        reply = svc.query(kind, src, mode=mode)
+                    except InjectedFault:
+                        reply = None
+                    fired = plan.fired - fired
+                    if reply is not None and (reply.retries or
+                                              reply.degraded) and not fired:
+                        raise AssertionError(
+                            f"{kind}({src}) {reply.mode} retries "
+                            f"{reply.retries} with no fault fired")
+                    if reply is not None and reply.degraded and \
+                            svc.ring.get_entry(reply.stale_version) is None:
+                        raise AssertionError(
+                            f"degraded {kind}({src}) names version "
+                            f"{reply.stale_version}, not in the ring")
+                    out.append((kind, src, mode, reply, fired))
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            if (i + 1) % SCORES_EVERY == 0:
+                bc_scores()
+    checks["count_mm_masked launches"] = launches
+    return out, scores, wall
+
+
+def options_phase(torch, np, timings):
+    """Phase 3e: GraphService with telemetry, adaptive thresholds, the
+    resilience policy, breaker, journal, heartbeat and compaction, on 3a's
+    state and stream, held against the bare service.  Returns the
+    ``count_mm_masked`` launches of its bc_scores calls."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from repro_torch.core import state_to_numpy
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs.expo import validate_openmetrics
+    from repro_torch.resil import (P_COLLECT_DELTA, P_COLLECT_DISPATCH,
+                                   P_JOURNAL_TORN, FaultPlan, InjectedCrash,
+                                   OpJournal, ResiliencePolicy, fault_scope,
+                                   journal_meta, recover, verify_service)
+    from repro_torch.runtime import HeartbeatMonitor
+
+    state = load_rmat_graph(N_VERTICES, N_EDGES, seed=SEED, device=DEV)
+    rng = np.random.default_rng(SEED)
+    stream, hot_base = commit_stream(np, rng, N_VERTICES)
+    sources = query_sources(torch, state, hot_base)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3e_")
+    try:
+        # -- the bare 3a service: the answers every option must leave alone
+        bare = GraphService(state, ring_depth=RING_DEPTH,
+                            batch_size=BATCH_SIZE)
+        answers, bare_scores, t_bare = {}, {}, 0.0
+        bare_scores[0] = bare.bc_scores(src_chunk=SRC_CHUNK)[0]
+        for i, ops in enumerate(stream):
+            t0 = time.perf_counter()
+            for kind, src, _, reply in ladder_round(bare, ops, sources, i):
+                answers[(kind, src, reply.version)] = reply.result
+            torch.cuda.synchronize()
+            t_bare += time.perf_counter() - t0
+            if (i + 1) % SCORES_EVERY == 0:
+                s, v = bare.bc_scores(src_chunk=SRC_CHUNK)
+                bare_scores[v] = s
+        del bare
+
+        # -- every option on, faults at the collect points
+        trace = os.path.join(tmp, "trace.jsonl")
+        wal = os.path.join(tmp, "wal.jsonl")
+        tel = Telemetry.make(trace_path=trace)
+        journal = OpJournal(wal, segment_bytes=SEGMENT_BYTES,
+                            meta=journal_meta(state,
+                                              {"batch_size": BATCH_SIZE}))
+        svc = GraphService(
+            state, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE,
+            telemetry=tel, adaptive=True,
+            policy=ResiliencePolicy(max_retries=1, allow_stale=True),
+            breaker=True, journal=journal, monitor=HeartbeatMonitor(),
+            compact_every=COMPACT_EVERY)
+        plan = FaultPlan(seed=FAULT_SEED, rate=FAULT_RATE,
+                         points=(P_COLLECT_DISPATCH, P_COLLECT_DELTA))
+        checks = {}
+        out, scores, t_opts = options_stream(torch, svc, stream, sources,
+                                             plan, checks)
+        timings["3e stream, every option off (3a service)"] = t_bare
+        timings["3e stream, every option on"] = t_opts
+
+        # 1. same answers as the bare service
+        for kind, src, mode, reply, _ in out:
+            if reply is None:
+                continue
+            v = reply.stale_version if reply.degraded else reply.version
+            if not same_result(torch, reply.result, answers[(kind, src, v)]):
+                raise AssertionError(f"{kind}({src}, {mode}) at version {v} "
+                                     f"({reply.mode}) != the bare service")
+        for v, s in scores.items():
+            if not torch.allclose(s, bare_scores[v], equal_nan=True, **TOL):
+                raise AssertionError(f"bc_scores at version {v} != bare")
+        modes = {}
+        for kind, _, _, reply, _ in out:
+            key = (kind, reply.mode if reply is not None else "raised")
+            modes[key] = modes.get(key, 0) + 1
+        log(f"  {len(out)} replies equal the bare service's at their "
+            f"version ({sum(r is not None for *_, r, _ in out)} answered; "
+            f"BC delta to 1e-5); {len(scores)} bc_scores to 1e-5")
+        log(f"  replies by kind and rung {dict(sorted(modes.items()))}")
+
+        # 2. every caught exception is a fault the plan fired
+        st = svc.stats
+        log(f"  service stats {st.as_dict()}")
+        hits = {p: plan.hits.get(p, 0) for p in plan.points}
+        log(f"  faults fired at the collect points {plan.fired} of their "
+            f"hits {hits}: {plan.to_schedule()}")
+        if st.errors != plan.fired:
+            raise AssertionError(f"stats.errors {st.errors} != faults fired "
+                                 f"{plan.fired}: a real error was caught")
+        if st.retries < 1 or st.degraded < 1:
+            raise AssertionError(f"retries {st.retries}, degraded "
+                                 f"{st.degraded}: a rung did not run")
+
+        # 3. bc_scores under telemetry launched the kernel
+        spans = [r["span"] for r in tel.tracer.records]
+        log(f"  bc_scores {dict(svc.bc_scores_stats)}, count_mm_masked "
+            f"launches {checks['count_mm_masked launches']}, tile_refresh "
+            f"spans {spans.count('tile_refresh')}")
+        if checks["count_mm_masked launches"] <= 0:
+            raise AssertionError("bc_scores never launched count_mm_masked")
+        if svc.bc_scores_stats["delta"] < 1 or "tile_refresh" not in spans:
+            raise AssertionError("no delta bc_scores / tile_refresh span")
+
+        # compaction, then a committed tail and pending ops
+        t0 = time.perf_counter()
+        report = svc.compact_wal()
+        timings["3e compaction"] = time.perf_counter() - t0
+        log(f"  compaction at version {report['version']}: snapshot "
+            f"{report['snapshot_bytes']} bytes in "
+            f"{timings['3e compaction'] * 1e3:.1f} ms, segments dropped "
+            f"{report['segments_dropped']}, journal rotations "
+            f"{journal.rotations}, auto compactions "
+            f"{svc.scheduler.stats.compacts}")
+        tail_rng = np.random.default_rng(SEED + 1)
+        tail, _ = commit_stream(np, tail_rng, N_VERTICES)
+        # 8a. the tail's first round under the profiler: every collect's
+        # event time covers the kernels launched inside it
+        n0 = len(tel.tracer.records)
+        regions = collect_kernel_us(torch, lambda: ladder_round(
+            svc, tail[0], sources, len(stream)))
+        spans = [r for r in tel.tracer.records[n0:]
+                 if r["span"] == "collect"]
+        if [k for k, _ in regions] != [r["kind"] for r in spans]:
+            raise AssertionError(f"profiled collect ranges {regions} do not "
+                                 f"match the round's collect spans")
+        scale, slack = REGION_COVER
+        busy = {}
+        for (kind, kern), r in zip(regions, spans):
+            if kern > r["device_us"] * scale + slack:
+                raise AssertionError(
+                    f"collect:{kind} kernels {kern:.1f} us outside its "
+                    f"events' {r['device_us']} us: the events do not "
+                    f"bracket the work")
+            k, d = busy.get(kind, (0.0, 0.0))
+            busy[kind] = (k + kern, d + r["device_us"])
+        if DEV == "cuda" and not sum(k for k, _ in busy.values()) > 0:
+            raise AssertionError("the profiled round ran no kernel")
+        log("  profiled round, kernel time / event time of its collects: " +
+            ", ".join(f"{kind} {k:.1f} / {d:.1f} us ({k / d:.3f})"
+                      for kind, (k, d) in busy.items()))
+        svc.submit_many(tail[1][:BATCH_SIZE // 2])
+
+        # 6. the exposition and a scrape
+        text = tel.exposition(journal=journal)
+        problems = validate_openmetrics(text)
+        if problems:
+            raise AssertionError(f"exposition: {problems[:5]}")
+        with tel.serve(port=0, journal=journal) as srv:
+            with urllib.request.urlopen(srv.url, timeout=30) as resp:
+                scraped = resp.read().decode()
+
+        def families(t):
+            return {ln.split()[2] for ln in t.splitlines()
+                    if ln.startswith("# TYPE")}
+        if families(scraped) != families(text) or validate_openmetrics(
+                scraped):
+            raise AssertionError("GET /metrics differs from the exposition")
+        log(f"  exposition valid, {len(families(text))} families, "
+            f"{len(text.splitlines())} lines; GET {srv.url} the same "
+            f"families")
+
+        # latency per kind and rung, from the registry
+        for name in ("query_wall_us", "query_device_us"):
+            for h in tel.registry.find(name):
+                labels = dict(h.labels)
+                qs = h.quantiles((0.5, 0.99))
+                log(f"  {name} {labels['kind']}/{labels['mode']}: n "
+                    f"{h.count}, p50 {qs[0.5]:.1f}, p99 {qs[0.99]:.1f}")
+        log(f"  adaptive thresholds {svc.adaptive!r}; breaker "
+            f"{svc.breaker!r}; commit stragglers "
+            f"{svc.scheduler.stats.stragglers}")
+        for key, cost in tel.accountant.snapshot().items():
+            if "'cuda'" in key:
+                log(f"  cost {key}: {cost}")
+
+        # 7. the report covers the trace; 8. device time is real
+        tel.close()
+        files = [trace] + sorted(
+            os.path.join(tmp, f) for f in os.listdir(tmp)
+            if f.startswith("trace.jsonl."))
+        records = obs_report.load_many(files)
+        rows = obs_report.summarize(records)
+        ran = {(k, r.mode) for k, _, _, r, _ in out if r is not None}
+        have = {(r["kind"], r["mode"]) for r in rows}
+        if not ran <= have:
+            raise AssertionError(f"report rows miss {ran - have}")
+        log(obs_report.render(rows))
+        for r in records:
+            done = (r["span"] == "collect" and "mode" in r) or (
+                r["span"] == "query" and "error" not in r
+                and not r["degraded"])
+            # both rounded to 0.1 us; the events lie inside the span
+            if done and not 0 < r["device_us"] <= r["wall_us"] + 0.1:
+                raise AssertionError(f"span's device time not in (0, wall]: "
+                                     f"{r}")
+        log(f"  every finished collect and query span carries 0 < device_us "
+            f"<= wall_us ({len(records)} records)")
+
+        # 4. drop the service, recover from the snapshot + journal tail
+        live = state_to_numpy(svc.ring.latest.state)
+        ledger = {f: getattr(svc.scheduler.stats, f) for f in
+                  ("ops_submitted", "ops_committed", "batches_committed")}
+        ledger["pending"] = svc.scheduler.pending()
+        thresholds = svc.adaptive.thresholds()
+        version = svc.version
+        journal.close()
+        del svc, tel
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = recover(wal, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE,
+                      telemetry=Telemetry.make(), adaptive=True, device=DEV)
+        torch.cuda.synchronize()
+        timings["3e recovery"] = time.perf_counter() - t0
+        got = {f: getattr(rec.scheduler.stats, f) for f in ledger
+               if f != "pending"}
+        got["pending"] = rec.scheduler.pending()
+        if rec.version != version or got != ledger:
+            raise AssertionError(f"recovered {rec.version} {got} != live "
+                                 f"{version} {ledger}")
+        for name, a, b in zip(type(live)._fields, live,
+                              state_to_numpy(rec.ring.latest.state)):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"recovered state {name} differs")
+        if rec.adaptive.thresholds() != thresholds:
+            raise AssertionError(f"thresholds {rec.adaptive.thresholds()} "
+                                 f"!= live {thresholds}")
+        problems = verify_service(rec)
+        if problems:
+            raise AssertionError(f"verify_service: {problems}")
+        log(f"  recovered version {rec.version} in "
+            f"{timings['3e recovery'] * 1e3:.1f} ms: state bit-identical, "
+            f"ledger {got}, thresholds {thresholds}, verify_service []")
+        del rec
+
+        # 5. a crash tears a barrier
+        cwal = os.path.join(tmp, "crash.jsonl")
+        csvc = GraphService(state, ring_depth=RING_DEPTH,
+                            batch_size=BATCH_SIZE,
+                            journal=OpJournal(cwal, meta=journal_meta(
+                                state, {"batch_size": BATCH_SIZE})))
+        crash_plan = FaultPlan({P_JOURNAL_TORN: [CRASH_AT]})
+        try:
+            with fault_scope(crash_plan):
+                for ops in tail[:CRASH_COMMITS]:
+                    csvc.submit_many(ops)
+                    csvc.flush()
+            raise AssertionError("the torn barrier did not crash")
+        except InjectedCrash:
+            pass
+        csvc.scheduler.journal.close()
+        t0 = time.perf_counter()
+        crec = recover(cwal, state, ring_depth=RING_DEPTH,
+                       batch_size=BATCH_SIZE, device=DEV)
+        torch.cuda.synchronize()
+        timings["3e crash recovery"] = time.perf_counter() - t0
+        whole = state_to_numpy(csvc.ring.get(CRASH_AT))
+        same = all(np.array_equal(a, b) for a, b in zip(
+            whole, state_to_numpy(crec.ring.latest.state)))
+        if crec.version != CRASH_AT or not same or \
+                crec.scheduler._log != [tuple(op) for op in tail[CRASH_AT]]:
+            raise AssertionError(
+                f"crash recovery: version {crec.version}, state "
+                f"{'equal' if same else 'differs'}, pending "
+                f"{crec.scheduler.pending()}")
+        log(f"  torn barrier {CRASH_AT + 1} of {CRASH_COMMITS}: recovered "
+            f"version {crec.version} (the ring had {csvc.version}) in "
+            f"{timings['3e crash recovery'] * 1e3:.1f} ms, the torn batch's "
+            f"{crec.scheduler.pending()} ops pending")
+        return checks["count_mm_masked launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1387,6 +1800,13 @@ def main() -> int:
     launches["flash_attention"], flash_row = lm_phase(torch, errs, timings)
     rows.append(flash_row)
     timings["LM phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log("== phase 3e: GraphService with every option (telemetry, adaptive, "
+        "policy, breaker, journal, heartbeat, compaction)")
+    t0 = time.perf_counter()
+    launches["count_mm_masked"] += options_phase(torch, np, timings)
+    timings["options phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

@@ -10,6 +10,11 @@ counterpart:
     under ``kernels/csrc``), their padded wrappers and plain versions;
   * :mod:`repro_torch.engine` -- the version ring, the update scheduler,
     the unchanged -> delta -> full query ladder and ``GraphService``;
+  * :mod:`repro_torch.obs`, :mod:`repro_torch.resil`,
+    :mod:`repro_torch.checkpoint`, :mod:`repro_torch.runtime` -- the
+    service's options: telemetry and adaptive thresholds, fault injection,
+    the degrade ladder and circuit breaker, the op journal with snapshot
+    compaction and recovery, the heartbeat monitor;
   * :mod:`repro_torch.data` -- the R-MAT generator;
   * :mod:`repro_torch.bench` -- the paper's Section 5 workload runner.
 

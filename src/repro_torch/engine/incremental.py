@@ -50,6 +50,8 @@ from repro_torch.core.queries import (
     sssp,
     sssp_tree_parents,
 )
+from repro_torch.obs.cost import account_call
+from repro_torch.obs.trace import annotate as _trace_annotate
 
 
 @dataclass
@@ -192,19 +194,35 @@ def _prior_usable(state: GraphState, prior, prior_ok) -> bool:
             and prior.dist.shape[0] == state.vcap)
 
 
+def _acct_key(kind: str, state: GraphState) -> tuple:
+    """Cost signature of a local query: the reference's (the table
+    capacities) plus the device, whose cost differs."""
+    return ("local", kind, state.vcap, state.ecap, state.device.type)
+
+
+def _full(kind, fn, state, src, accountant, stats):
+    return account_call(accountant, _acct_key(kind, state), fn, state,
+                        src), stats
+
+
 def incremental_bfs(state: GraphState, prior: Optional[BFSResult],
                     dirty: Optional[torch.Tensor], src, *,
-                    dirty_threshold: float = 0.25):
+                    dirty_threshold: float = 0.25, accountant=None):
     """BFS on ``state`` reusing ``prior`` where possible.
 
     Returns ``(BFSResult, IncrementalStats)``; the result is always exactly
-    what ``queries.bfs(state, src)`` would return.
+    what ``queries.bfs(state, src)`` would return.  With an ``accountant``
+    (``repro_torch.obs.cost``) the cost of whichever call produced the
+    answer is deposited in ``accountant.last`` -- the *unchanged* shortcut
+    runs none and deposits nothing.
     """
     if dirty is None or not _prior_usable(state, prior,
                                           prior.ok if prior else False):
-        return bfs(state, src), IncrementalStats("full")
+        return _full("bfs", bfs, state, src, accountant,
+                     IncrementalStats("full"))
     n_dirty, touched = _dirty_stats(prior.reached, dirty)
     frac = n_dirty / state.vcap
+    _trace_annotate(dirty=n_dirty, dirty_frac=round(frac, 6))
     stats = IncrementalStats("delta", n_dirty, frac)
     # Unchanged beats the threshold check: churn confined outside the
     # query's reached region leaves the cached answer valid.
@@ -213,38 +231,42 @@ def incremental_bfs(state: GraphState, prior: Optional[BFSResult],
         return prior, stats
     if frac > dirty_threshold:
         stats.mode = "full"
-        return bfs(state, src), stats
-    return delta_bfs(state, prior, dirty, src), stats
+        return _full("bfs", bfs, state, src, accountant, stats)
+    return account_call(accountant, _acct_key("bfs_delta", state), delta_bfs,
+                        state, prior, dirty, src), stats
 
 
 def incremental_sssp(state: GraphState, prior: Optional[SSSPResult],
                      dirty: Optional[torch.Tensor], src, *,
-                     dirty_threshold: float = 0.25):
+                     dirty_threshold: float = 0.25, accountant=None):
     """SSSP analogue of ``incremental_bfs``."""
     if dirty is None or not _prior_usable(state, prior,
                                           prior.ok if prior else False):
-        return sssp(state, src), IncrementalStats("full")
+        return _full("sssp", sssp, state, src, accountant,
+                     IncrementalStats("full"))
     n_dirty, touched = _dirty_stats(prior.dist < INF, dirty)
     frac = n_dirty / state.vcap
+    _trace_annotate(dirty=n_dirty, dirty_frac=round(frac, 6))
     stats = IncrementalStats("delta", n_dirty, frac)
     if not touched:
         stats.mode = "unchanged"
         return prior, stats
     if frac > dirty_threshold:
         stats.mode = "full"
-        return sssp(state, src), stats
-    res = delta_sssp(state, prior, dirty, src)
+        return _full("sssp", sssp, state, src, accountant, stats)
+    res = account_call(accountant, _acct_key("sssp_delta", state),
+                       delta_sssp, state, prior, dirty, src)
     if bool(res.negcycle):
         # Negative cycle: the full query's non-converged distances depend
         # on relaxation order; rerun it so callers see the canonical answer.
         stats.mode = "full"
-        return sssp(state, src), stats
+        return _full("sssp", sssp, state, src, accountant, stats)
     return res, stats
 
 
 def incremental_bc(state: GraphState, prior: Optional[BCResult],
                    dirty: Optional[torch.Tensor], src, *,
-                   dirty_threshold: float = 0.25):
+                   dirty_threshold: float = 0.25, accountant=None):
     """BC dependencies with the unchanged -> delta -> full ladder.
 
     Churn that never touches the prior forward region (``level >= 0``)
@@ -255,21 +277,24 @@ def incremental_bc(state: GraphState, prior: Optional[BCResult],
     usable = (prior is not None and bool(prior.ok)
               and prior.level.shape[0] == state.vcap)
     if dirty is None or not usable:
-        return bc_dependencies(state, src), IncrementalStats("full")
+        return _full("bc", bc_dependencies, state, src, accountant,
+                     IncrementalStats("full"))
     n_dirty, touched = _dirty_stats(prior.level >= 0, dirty)
     frac = n_dirty / state.vcap
+    _trace_annotate(dirty=n_dirty, dirty_frac=round(frac, 6))
     stats = IncrementalStats("delta", n_dirty, frac)
     if not touched:
         stats.mode = "unchanged"
         return prior, stats
     if frac > dirty_threshold:
         stats.mode = "full"
-        return bc_dependencies(state, src), stats
+        return _full("bc", bc_dependencies, state, src, accountant, stats)
     cut = int(bc_level_cut(prior.level, dirty, state.alive))
     if cut < 1:
         stats.mode = "full"
-        return bc_dependencies(state, src), stats
-    return _delta_bc_at_cut(state, prior, cut, src), stats
+        return _full("bc", bc_dependencies, state, src, accountant, stats)
+    return account_call(accountant, _acct_key("bc_delta", state),
+                        _delta_bc_at_cut, state, prior, cut, src), stats
 
 
 # ------------------------------ validation --------------------------------

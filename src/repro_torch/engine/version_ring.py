@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core.graph_state import GraphState
 from repro_torch.core.updates import dirty_vertices_padded
+from repro_torch.resil.faults import P_RING_EVICT, inject
 
 
 class RingEntry(NamedTuple):
@@ -101,10 +102,15 @@ class VersionRing:
     def commit(self, state: GraphState) -> RingEntry:
         """Append a new version; dirty set is derived vs the previous latest.
 
-        The dirty-set derivation (device work) runs outside the lock; only
-        the window rotation is serialized against pin/release.
+        The commit is atomic: the ``ring.evict`` fault point (an eviction
+        racing an in-flight query) fires BEFORE the append, so a planned
+        eviction failure leaves the ring exactly as it was.  The dirty-set
+        derivation (device work) runs outside the lock; only the window
+        rotation is serialized against pin/release.
         """
         with self._lock:
+            if len(self._window) >= self.depth:
+                inject(P_RING_EVICT)
             prev = self._window[-1]
         dirty = dirty_vertices_padded(prev.state, state)
         with self._lock:
@@ -214,3 +220,7 @@ class VersionRing:
     def pinned_versions(self) -> list[int]:
         with self._lock:
             return sorted(self._pins)
+
+    def pin_count(self, version: int) -> int:
+        with self._lock:
+            return self._pins.get(version, 0)

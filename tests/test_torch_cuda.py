@@ -548,3 +548,91 @@ def test_cuda_flash_attention_refuses_unaligned_stride(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         tops.flash_attention(q, k, k)
     assert tflash.LAUNCHES["flash_attention"] == before
+
+
+# ------------------------- telemetry and checkpoints -------------------------
+
+@pytest.mark.cuda
+def test_cuda_device_timer_reads_events(cuda_device):
+    """On a CUDA device the region is timed by CUDA events: a few
+    thousand-wide products read no more than the host's wall around the
+    same region, and no less than the device time ``torch.profiler``
+    gives the kernels launched inside it (2% + 2 us for the two clocks)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import DeviceTimer
+
+    x = torch.randn((2048, 2048), device=cuda_device)
+    timer = DeviceTimer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with timer.region("work", cuda_device) as reg:
+            for _ in range(8):
+                x = (x @ x).tanh()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        assert reg.cuda and 0 < reg.us
+        torch.cuda.synchronize()
+        assert reg.us <= (time.perf_counter() - t0) * 1e6
+    assert wall_us > 0 and timer.total_us == reg.us
+    work = [e for e in prof.events()
+            if e.device_type == DeviceType.CPU and e.name == "work"]
+    assert len(work) == 1
+    kern = float(work[0].device_time_total
+                 if hasattr(work[0], "device_time_total")
+                 else work[0].cuda_time_total)
+    assert 0 < kern <= reg.us * 1.02 + 2.0
+
+
+@pytest.mark.cuda
+def test_cuda_query_cost_has_integer_peak_bytes(cuda_device):
+    """A traced query on the card: its cost dict carries integer
+    peak/temp bytes from the allocator and the query span device time
+    from events."""
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.obs import CostAccountant, Telemetry
+
+    tel = Telemetry(accountant=CostAccountant(shared=False))
+    svc = GraphService(load_rmat_graph(512, 4096, seed=1, device="cuda"),
+                       telemetry=tel)
+    for kind in ("bfs", "sssp", "bc"):
+        svc.query(kind, 0)
+        cost = tel.accountant.last
+        assert isinstance(cost["peak_bytes"], int) and cost["peak_bytes"] > 0
+        assert isinstance(cost["temp_bytes"], int)
+        assert cost["collective_bytes"] == 0
+    spans = [r for r in tel.tracer.records if r["span"] == "query"]
+    assert len(spans) == 3 and all(r["device_us"] > 0 for r in spans)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrips_graph_state(cuda_device, tmp_path):
+    """save_checkpoint / restore_checkpoint of a CUDA GraphState, and a
+    journal recovered onto the card from its snapshot: bit for bit."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import PUTE, state_to_numpy
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.resil import OpJournal, journal_meta, recover
+
+    g = load_rmat_graph(1024, 8192, seed=2, device="cuda")
+    save_checkpoint(str(tmp_path / "c"), 1, g, version=1, verify=True)
+    back = restore_checkpoint(str(tmp_path / "c"), 1, g, verify=True)
+    assert back.alive.is_cuda
+    for a, b in zip(state_to_numpy(g), state_to_numpy(back)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    wal = str(tmp_path / "wal.jsonl")
+    svc = GraphService(g, batch_size=8, compact_every=2,
+                       journal=OpJournal(wal, meta=journal_meta(
+                           g, {"batch_size": 8})))
+    svc.submit_many([(PUTE, i, (7 * i) % 1024, 2.0) for i in range(60)])
+    rec = recover(wal, batch_size=8)
+    assert rec.version == svc.version and rec.scheduler.pending() == 4
+    for a, b in zip(state_to_numpy(svc.ring.latest.state),
+                    state_to_numpy(rec.ring.latest.state)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -12,6 +12,12 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
   * ``bc_scores delta`` -- the delta ``bc_scores`` call the smoke makes
     after those commits;
   * ``ladder round``   -- the stream's next batch and its nine queries;
+  * ``ladder round, every option`` -- the same round through a second
+    service with every option of ``chip_smoke.py``'s phase 3e (telemetry
+    with a JSONL trace, adaptive thresholds, the resilience policy, the
+    breaker, a journal, a heartbeat monitor, compaction every
+    ``COMPACT_EVERY`` commits; no faults), after the same batches: what
+    the instruments add to a round;
   * ``sssp_batched_dense masked`` -- one batched SSSP at the batched
     phase's shape (``SRC_CHUNK`` sources of the initial R-MAT state, the
     tile view's occupancy as the mask);
@@ -68,11 +74,14 @@ def profile_window(torch, name, fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # Only device-side events: a CPU op (aten::*) also carries the device
-    # time of the kernels it launched, which would count them twice.
+    # Only device-side kernel events: a CPU op (aten::*) also carries the
+    # device time of the kernels it launched, and a record_function range
+    # (the device timer's "collect:<kind>") spans them on the device
+    # timeline; either would count them twice.
     rows = [(evt.key, evt.count, _device_us(evt))
             for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA]
+            if evt.device_type == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)]
     rows = [r for r in rows if r[2] > 0]
     rows.sort(key=lambda r: -r[2])
     device_us = sum(r[2] for r in rows)
@@ -144,7 +153,8 @@ def main() -> int:
            profile_window(torch, "ladder round",
                           lambda: smoke.ladder_round(svc, stream[nxt],
                                                      sources, nxt))]
-    print(f"  bc_scores modes {svc.bc_scores_stats}; ladder {vars(svc.stats)}")
+    print(f"  bc_scores modes {svc.bc_scores_stats}; ladder {svc.stats.as_dict()}")
+    out.append(options_window(torch, smoke, state, stream, sources))
 
     view = build_tile_view(state)
     _, w, alive = dense_views_from_tiles(state, view)
@@ -172,6 +182,36 @@ def main() -> int:
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
     return 0
+
+
+def options_window(torch, smoke, state, stream, sources):
+    import tempfile
+
+    from repro_torch.engine import GraphService
+    from repro_torch.obs import Telemetry
+    from repro_torch.resil import OpJournal, ResiliencePolicy, journal_meta
+    from repro_torch.runtime import HeartbeatMonitor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = Telemetry.make(trace_path=os.path.join(tmp, "trace.jsonl"))
+        journal = OpJournal(os.path.join(tmp, "wal.jsonl"),
+                            meta=journal_meta(
+                                state, {"batch_size": smoke.BATCH_SIZE}))
+        svc = GraphService(
+            state, ring_depth=smoke.RING_DEPTH, batch_size=smoke.BATCH_SIZE,
+            telemetry=tel, adaptive=True,
+            policy=ResiliencePolicy(max_retries=1), breaker=True,
+            journal=journal, monitor=HeartbeatMonitor(),
+            compact_every=smoke.COMPACT_EVERY)
+        for i in range(smoke.RING_DEPTH):
+            smoke.ladder_round(svc, stream[i], sources, i)
+        nxt = smoke.RING_DEPTH
+        row = profile_window(torch, "ladder round, every option",
+                             lambda: smoke.ladder_round(svc, stream[nxt],
+                                                        sources, nxt))
+        journal.close()
+        tel.close()
+    return row
 
 
 def static_window(torch, np, smoke, query_name):
