@@ -102,6 +102,30 @@ exit code:
                  with the torn batch pending.  Prints p50/p99 per kind and
                  rung, both streams' walls, the snapshot's bytes and time, the
                  recovery times, the thresholds and each query's cost dict;
+  3f. serving -- the async front end (repro_torch.serve.AsyncGraphService,
+                 max_batch 32) over a GraphService(ring_depth=8,
+                 batch_size=32, telemetry) on 3a's graph (reloaded) and
+                 stream: 4 client threads of 48 query_async calls each
+                 (BFS/SSSP/BC cycling over 16 sources, 3a's three and the
+                 hot set's highest-degree vertices, in waves of 8) and an
+                 updater committing the stream's 16 batches, batch i once
+                 i/16 of the replies are in.  Every reply must be
+                 torch.equal, field by field, BC delta included, to the
+                 sequential query on the state at the version it names;
+                 both rungs must have batched dispatches (>= 2 lanes); no
+                 fallback, no error, no pin left.  Before that, the lane
+                 forms (core.queries.*_lanes, engine.incremental.delta_*_lanes)
+                 must equal sequential calls bit for bit at 32 lanes on the
+                 stream's last state (delta priors 8 versions older) and
+                 through a 17-lane dispatch padded to 32.  Then the same
+                 schedule on one thread through svc.query, for queries/s;
+                 a chaos run under serve.dispatch faults that must fall
+                 back and stay exact; and, per kind and rung, one 32-lane
+                 call against 32 sequential calls: wall, host reads and
+                 (one torch.profiler session) kernel launches per query.
+                 Prints replies and rung tallies, dispatches and the lane
+                 histogram, serve_request_us p50/p99 per kind, commits
+                 that overlapped a dispatch and peak memory;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
                  launches are those of 3a and 3e.
@@ -1720,6 +1744,502 @@ def options_phase(torch, np, timings):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------- phase 3f --------------------------------
+
+SERVE_CLIENTS, SERVE_QUERIES, SERVE_SOURCES = 4, 48, 16
+SERVE_WAVE = 8          # a client waits for its replies every 8 admissions
+SERVE_BATCH = 32        # the front end's max_batch, and the lane checks' L
+SERVE_PADDED = 17       # lanes of the padded dispatch check (pads to 32)
+SERVE_WAIT = 300        # seconds any one wait of phase 3f may take
+CHAOS_HITS = (0, 2, 5, 9)   # serve.dispatch hits that fail in the chaos run
+
+
+def fresh(kind):
+    """The single-source query of ``kind``."""
+    from repro_torch.core import queries
+
+    return {"bfs": queries.bfs, "sssp": queries.sssp,
+            "bc": queries.bc_dependencies}[kind]
+
+
+def host_reads(torch, fn) -> int:
+    """Synchronising device-to-host reads while ``fn`` runs (each warns
+    once under ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def launches_by_range(torch, fns):
+    """Kernel launches of each thunk of ``fns`` (name -> thunk), all run in
+    one ``torch.profiler`` session: the runtime's launch calls inside each
+    thunk's ``record_function`` range.  Also returns the kernels the
+    session saw on the device, which the ranges' sum should match."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in fns.items():
+            with record_function(f"lanes:{name}"):
+                fn()
+            torch.cuda.synchronize()
+    # the raw events: building the profiler's event tree for the
+    # sequential calls' ~10^5 ops would take longer than the calls
+    events = prof.profiler.kineto_results.events()
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    ranges = {e.name()[len("lanes:"):]: (e.start_ns(), e.end_ns())
+              for e in events
+              if e.device_type() == cpu and e.name().startswith("lanes:")}
+    starts = [e.start_ns() for e in events
+              if e.device_type() == cpu and "LaunchKernel" in e.name()]
+    device = sum(1 for e in events if e.device_type() == cuda
+                 and not e.name().startswith(("Memcpy", "Memset", "lanes:")))
+    return {name: sum(a <= t <= b for t in starts)
+            for name, (a, b) in ranges.items()}, device
+
+
+def serve_sources(torch, state, hot_base):
+    """``query_sources``' three, then the hot set's vertices by out-degree
+    (highest first), SERVE_SOURCES in all."""
+    deg = torch.bincount(state.esrc[state.esrc < N_VERTICES].long(),
+                         minlength=N_VERTICES)
+    size = max(2, int(N_VERTICES * HOT_FRAC))
+    order = torch.argsort(deg[hot_base:hot_base + size], descending=True,
+                          stable=True).tolist()
+    picks = query_sources(torch, state, hot_base)
+    for i in order:
+        if len(picks) == SERVE_SOURCES:
+            break
+        if hot_base + i not in picks:
+            picks.append(hot_base + i)
+    return picks
+
+
+def serve_schedules(sources):
+    """Each client's ``(kind, src)`` list: the kinds cycle BFS/SSSP/BC and
+    the sources cycle too, so a client asks every pair once (48 = 3 x 16),
+    each client from its own offset."""
+    return [[(KINDS[q % 3], sources[(q + 5 * c) % len(sources)])
+             for q in range(SERVE_QUERIES)] for c in range(SERVE_CLIENTS)]
+
+
+def snapshot(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def serve_run(torch, state, stream, schedules, plan=None):
+    """The clients and the updater through one ``AsyncGraphService``; the
+    updater commits batch ``i`` of the stream once ``i`` 16ths of the
+    replies are in.  Returns the replies ``[(kind, src, reply)]``, the
+    states by version, the service, the front end, the telemetry and the
+    wall."""
+    from repro_torch.engine import GraphService
+    from repro_torch.obs import Telemetry
+    from repro_torch.resil import ResiliencePolicy, fault_scope
+    from repro_torch.serve import AsyncGraphService
+
+    tel = Telemetry.make(hlo=False)
+    svc = GraphService(state, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE,
+                       telemetry=tel,
+                       policy=ResiliencePolicy(max_retries=1)
+                       if plan is not None else None)
+    states = {0: snapshot(state)}
+    replies, errs = [], []
+
+    def client(sched):
+        try:
+            for w in range(0, len(sched), SERVE_WAVE):
+                futs = [(k, s, srv.query_async(k, s))
+                        for k, s in sched[w:w + SERVE_WAVE]]
+                for k, s, f in futs:
+                    replies.append((k, s, f.result(timeout=SERVE_WAIT)))
+        except Exception as e:  # reported below, after the joins
+            errs.append(e)
+
+    every = sum(map(len, schedules)) // len(stream)
+
+    def updater():
+        # commit i once i * every replies are in: the sequential schedule's
+        # interleaving, one commit per `every` queries
+        try:
+            for i, ops in enumerate(stream):
+                deadline = time.perf_counter() + SERVE_WAIT
+                while len(replies) < i * every and not errs:
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError("the replies stopped coming")
+                    time.sleep(1e-3)
+                srv.submit_many(ops)
+                for entry in srv.flush():
+                    states[entry.version] = snapshot(entry.state)
+        except Exception as e:
+            errs.append(e)
+
+    import threading
+
+    with fault_scope(plan):
+        srv = AsyncGraphService(svc, max_batch=SERVE_BATCH).start()
+        try:
+            threads = [threading.Thread(target=updater)] + [
+                threading.Thread(target=client, args=(sched,))
+                for sched in schedules]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=SERVE_WAIT)
+                if t.is_alive():
+                    raise AssertionError("a client or the updater hung")
+            if not srv.drain(timeout=SERVE_WAIT):
+                raise AssertionError("the front end did not drain")
+            wall = time.perf_counter() - t0
+        finally:
+            srv.stop(timeout=SERVE_WAIT)
+    if errs:
+        raise AssertionError(f"phase 3f threads raised: {errs[:3]}")
+    return replies, states, svc, srv, tel, wall
+
+
+def check_replies(torch, replies, states):
+    """Every reply ``torch.equal`` (every field, BC delta included) to the
+    sequential query on the state at the version it names."""
+    seen = {}
+    for kind, src, reply in replies:
+        v = reply.stale_version if reply.degraded else reply.version
+        key = (kind, src, v)
+        if key not in seen:
+            seen[key] = fresh(kind)(states[v], src)
+        for name, a, b in zip(type(seen[key])._fields, reply.result,
+                              seen[key]):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(
+                    f"{kind}({src}) at version {v} ({reply.mode}): {name} "
+                    f"!= the sequential query")
+    return len(seen)
+
+
+def overlapping_commits(records):
+    """Commit spans that overlap some dispatch span in host time."""
+    disp = [(r["t_s"], r["t_s"] + r["wall_us"] / 1e6) for r in records
+            if r["span"] == "dispatch"]
+    return sum(1 for r in records if r["span"] == "commit" and any(
+        a < r["t_s"] + r["wall_us"] / 1e6 and r["t_s"] < b
+        for a, b in disp))
+
+
+def stream_states(state, stream):
+    """The state at every version of ``stream``, each batch committed
+    through a plain GraphService: ``{version: state}``."""
+    from repro_torch.engine import GraphService
+
+    svc = GraphService(state, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE)
+    states = {0: state}
+    for ops in stream:
+        svc.submit_many(ops)
+        for entry in svc.flush():
+            states[entry.version] = entry.state
+    return states
+
+
+def serve_lane_inputs(torch, states, sources):
+    """SERVE_BATCH sources (the serve sources, then vertices with edges
+    drawn from SEED + 2) and, per kind, the delta rung's lanes at the
+    newest version with priors from the ring-depth-older one:
+    ``{kind: [(src, prior, dirty, cut)]}``, usable lanes only (prior ok;
+    BC cut >= 1), as ``classify_local`` would admit them."""
+    import numpy as np
+
+    from repro_torch.core import dirty_vertices, queries
+
+    new, old = max(states), max(states) - RING_DEPTH
+    state = states[new]
+    deg = torch.bincount(state.esrc[state.esrc < N_VERTICES].long(),
+                         minlength=N_VERTICES)
+    rng = np.random.default_rng(SEED + 2)
+    srcs = list(sources)
+    while len(srcs) < SERVE_BATCH:
+        v = int(rng.integers(0, N_VERTICES))
+        if int(deg[v]) > 0 and v not in srcs:
+            srcs.append(v)
+    dirty = dirty_vertices(states[old], state)
+    delta = {}
+    for kind in KINDS:
+        lanes = []
+        for src in srcs:
+            prior = fresh(kind)(states[old], src)
+            if not bool(prior.ok):
+                continue
+            cut = None
+            if kind == "bc":
+                cut = int(queries.bc_level_cut(prior.level, dirty,
+                                               state.alive))
+                if cut < 1:
+                    continue
+            lanes.append((src, prior, dirty, cut))
+        delta[kind] = lanes
+    return state, srcs, delta
+
+
+def lane_calls(torch, state, srcs, delta):
+    """Per kind and rung: ``(one lane-batched call, the same lanes as
+    single-source calls)``, as thunks returning lists of results."""
+    from repro_torch.core import queries
+    from repro_torch.engine import incremental as inc
+    from repro_torch.serve.batch import _stack_pad, _unstack
+
+    lanes_fn = {"bfs": queries.bfs_lanes, "sssp": queries.sssp_lanes,
+                "bc": queries.bc_dependencies_lanes}
+    delta_lanes = {"bfs": inc.delta_bfs_lanes, "sssp": inc.delta_sssp_lanes,
+                   "bc": inc.delta_bc_at_cut_lanes}
+    delta_one = {"bfs": inc.delta_bfs, "sssp": inc.delta_sssp,
+                 "bc": inc._delta_bc_at_cut}
+    src_t = torch.tensor(srcs, dtype=torch.int32, device=state.device)
+    calls = {}
+    for kind in KINDS:
+        calls[kind, "full"] = (
+            lambda kind=kind: _unstack(lanes_fn[kind](state, src_t),
+                                       len(srcs)),
+            lambda kind=kind: [fresh(kind)(state, s) for s in srcs])
+        lanes = delta[kind]
+        ls = torch.tensor([ln[0] for ln in lanes], dtype=torch.int32,
+                          device=state.device)
+        priors = _stack_pad([ln[1] for ln in lanes], 0)
+        third = ([ln[3] for ln in lanes] if kind == "bc"
+                 else _stack_pad([ln[2] for ln in lanes], 0))
+        calls[kind, "delta"] = (
+            lambda kind=kind, ls=ls, priors=priors, third=third, n=len(
+                lanes): _unstack(delta_lanes[kind](state, priors, third,
+                                                   ls), n),
+            lambda kind=kind, lanes=lanes: [
+                delta_one[kind](state, p, c if kind == "bc" else d, s)
+                for s, p, d, c in lanes])
+    return calls
+
+
+def lane_checks(torch, states, sources):
+    """The lane forms bit for bit against sequential calls on the card,
+    each kind and rung, at SERVE_BATCH lanes and through the padded
+    dispatch (SERVE_PADDED lanes pad to SERVE_BATCH).  Returns the calls
+    and their lane counts for ``lane_measure``."""
+    from repro_torch.serve import Lane, dispatch_local_group, pad_pow2
+
+    state, srcs, delta = serve_lane_inputs(torch, states, sources)
+    calls = lane_calls(torch, state, srcs, delta)
+    for (kind, rung), (batched, sequential) in calls.items():
+        got, exp = batched(), sequential()
+        for i, (a, b) in enumerate(zip(got, exp)):
+            for name, x, y in zip(type(b)._fields, a, b):
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise AssertionError(f"{kind} {rung} lane {i} ({name}) "
+                                         f"!= the single-source call")
+        if rung == "delta":
+            # where the delta answer stands it is the full answer too
+            for (src, *_), a in zip(delta[kind], got):
+                if kind == "sssp" and bool(a.negcycle):
+                    continue
+                if not all(torch.equal(x, y) for x, y in
+                           zip(a, fresh(kind)(state, src))):
+                    raise AssertionError(f"delta {kind}({src}) != full")
+        log(f"  {kind} {rung}: {len(got)} lanes == {len(exp)} sequential "
+            f"calls bit for bit")
+        # the dispatcher's own path, padded
+        if rung == "full":
+            lanes = [Lane(i, s, "full") for i, s in
+                     enumerate(srcs[:SERVE_PADDED])]
+        else:
+            lanes = [Lane(i, s, "delta", prior=p, dirty=d, cut=c)
+                     for i, (s, p, d, c) in
+                     enumerate(delta[kind][:SERVE_PADDED])]
+        results, sizes = dispatch_local_group(None, kind, state, lanes)
+        for ln, res in zip(lanes, results):
+            want = exp[ln.index] if ln.mode == rung else \
+                fresh(kind)(state, ln.src)
+            if not all(torch.equal(x, y) for x, y in zip(res, want)):
+                raise AssertionError(f"padded {kind} {rung} lane {ln.index}"
+                                     f" != sequential")
+        log(f"    padded dispatch {len(lanes)} -> {pad_pow2(len(lanes))} "
+            f"lanes {sizes} bit for bit")
+
+    sizes = {(kind, rung): len(delta[kind]) if rung == "delta"
+             else len(srcs) for kind, rung in calls}
+    return calls, sizes
+
+
+def lane_measure(torch, calls, sizes, timings):
+    """Per kind and rung, per query: wall, host reads and (one profiler
+    session for every call) kernel launches of one lane-batched call
+    against the same lanes as sequential calls."""
+    rows, thunks = {}, {}
+    start = time.perf_counter()
+    for (kind, rung), (batched, sequential) in calls.items():
+        n = sizes[kind, rung]
+        row = rows[f"{kind} {rung}"] = {"lanes": n}
+        for label, fn in (("batched", batched), ("sequential", sequential)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            row[f"{label}_ms"] = (time.perf_counter() - t0) * 1e3 / n
+            row[f"{label}_reads"] = host_reads(torch, fn) / n
+            thunks[f"{kind} {rung} {label}"] = fn
+    timings["3f lane walls and host reads"] = time.perf_counter() - start
+    start = time.perf_counter()
+    counts, device = launches_by_range(torch, thunks)
+    timings["3f lane profile"] = time.perf_counter() - start
+    if not sum(counts.values()):
+        raise AssertionError("the profiler saw no kernel launch calls")
+    log(f"  profiled lane calls: {sum(counts.values())} launch calls in "
+        f"their ranges, {device} kernels on the device")
+    for key, row in rows.items():
+        for label in ("batched", "sequential"):
+            row[f"{label}_launches"] = counts[f"{key} {label}"] / row["lanes"]
+        log(f"  {key}, {row['lanes']} lanes, per query batched / sequential:"
+            f" launches {row['batched_launches']:.1f} / "
+            f"{row['sequential_launches']:.1f}, host reads "
+            f"{row['batched_reads']:.2f} / {row['sequential_reads']:.2f}, "
+            f"wall {row['batched_ms']:.3f} / {row['sequential_ms']:.3f} ms")
+    return rows
+
+
+def serve_phase(torch, np, timings):
+    """Phase 3f: the async serving front end on 3a's graph and stream, four
+    clients and an updater; every reply held against the sequential query
+    at its version; the lane forms against sequential calls; a chaos run
+    under serve.dispatch faults.  Returns the lane rows and the numbers it
+    printed, for the summary line."""
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.obs import Telemetry
+    from repro_torch.resil import P_SERVE_DISPATCH, FaultPlan
+
+    state = load_rmat_graph(N_VERTICES, N_EDGES, seed=SEED, device=DEV)
+    rng = np.random.default_rng(SEED)
+    stream, hot_base = commit_stream(np, rng, N_VERTICES)
+    sources = serve_sources(torch, state, hot_base)
+    schedules = serve_schedules(sources)
+    n_queries = sum(map(len, schedules))
+    log(f"  {SERVE_CLIENTS} clients x {SERVE_QUERIES} queries over sources "
+        f"{sources}; {len(stream)} commits of {OPS_PER_COMMIT} ops")
+    summary = {"queries": n_queries}
+
+    # -- the lane forms against sequential calls; first, so that every
+    # kernel of the lane path is loaded before the front end is timed
+    t0 = time.perf_counter()
+    calls, sizes = lane_checks(torch, stream_states(state, stream), sources)
+    timings["3f lane checks"] = time.perf_counter() - t0
+
+    # -- the clean run
+    torch.cuda.reset_peak_memory_stats()
+    replies, states, svc, srv, tel, wall = serve_run(torch, state, stream,
+                                                     schedules)
+    peak = torch.cuda.max_memory_allocated()
+    timings["3f front end"] = wall
+    checked = check_replies(torch, replies, states)
+    st, ss = svc.stats, srv.stats
+    tally = {}
+    for kind, _, reply in replies:
+        tally[kind, reply.mode] = tally.get((kind, reply.mode), 0) + 1
+    log(f"  {len(replies)} replies torch.equal to the sequential query at "
+        f"their version ({checked} distinct (kind, source, version)); by "
+        f"kind and rung {dict(sorted(tally.items()))}")
+    log(f"  service {st.as_dict()}; front end dispatches {ss.dispatches}, "
+        f"batched {ss.batched_dispatches}, max batch {ss.max_batch_seen}, "
+        f"fallbacks {ss.fallbacks}, expired {ss.deadline_expired}")
+    hist = {}
+    for h in tel.registry.find("serve_batch_size"):
+        rung = dict(h.labels)["rung"]
+        for n in h.samples:
+            hist.setdefault(rung, {}).setdefault(int(n), 0)
+            hist[rung][int(n)] += 1
+    hist = {r: dict(sorted(c.items())) for r, c in sorted(hist.items())}
+    log(f"  lanes per dispatch (lanes: dispatches) {hist}")
+    latency = {}
+    for h in tel.registry.find("serve_request_us"):
+        qs = h.quantiles((0.5, 0.99))
+        latency[dict(h.labels)["kind"]] = [qs[0.5], qs[0.99]]
+        log(f"  serve_request_us {dict(h.labels)['kind']}: n {h.count}, p50 "
+            f"{qs[0.5]:.1f}, p99 {qs[0.99]:.1f}")
+    overlap = overlapping_commits(tel.tracer.records)
+    log(f"  {overlap} of {len(stream)} commits landed while a dispatch was "
+        f"in flight; peak device memory {peak / 2**30:.2f} GiB")
+    summary.update(dispatches=ss.dispatches,
+                   batched_dispatches=ss.batched_dispatches,
+                   max_batch_seen=ss.max_batch_seen, lanes_hist=hist,
+                   request_us=latency, overlapping_commits=overlap,
+                   peak_gib=peak / 2**30, front_end_s=wall,
+                   rungs={f"{k} {m}": n for (k, m), n in tally.items()})
+    if len(replies) != n_queries or st.queries != n_queries:
+        raise AssertionError(f"{len(replies)} replies, {st.queries} queries "
+                             f"for {n_queries} admitted")
+    if st.unchanged + st.delta + st.full != st.queries:
+        raise AssertionError(f"ladder tallies do not add up: {st.as_dict()}")
+    if ss.fallbacks or st.errors:
+        raise AssertionError(f"clean run: {ss.fallbacks} fallbacks, "
+                             f"{st.errors} errors")
+    for rung in ("full", "delta"):
+        if not any(n >= 2 for n in hist.get(rung, {})):
+            raise AssertionError(f"no batched dispatch on the {rung} rung")
+    if svc.ring.pinned_versions():
+        raise AssertionError(f"pins left: {svc.ring.pinned_versions()}")
+    del svc, srv, tel, replies, states
+
+    # -- the same schedule, one thread, through svc.query
+    seq = GraphService(state, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE,
+                       telemetry=Telemetry.make(hlo=False))
+    order = [q for w in range(0, SERVE_QUERIES, SERVE_WAVE)
+             for sched in schedules for q in sched[w:w + SERVE_WAVE]]
+    every = len(order) // len(stream)
+    t0 = time.perf_counter()
+    for i, (kind, src) in enumerate(order):
+        if i % every == 0 and i // every < len(stream):
+            seq.submit_many(stream[i // every])
+            seq.flush()
+        seq.query(kind, src)
+    torch.cuda.synchronize()
+    seq_wall = timings["3f sequential"] = time.perf_counter() - t0
+    summary.update(sequential_s=seq_wall, qps=n_queries / wall,
+                   sequential_qps=n_queries / seq_wall)
+    log(f"  queries/s: front end {n_queries / wall:.1f} ({wall:.3f} s), "
+        f"sequential svc.query {n_queries / seq_wall:.1f} ({seq_wall:.3f} "
+        f"s); sequential ladder {seq.stats.as_dict()}")
+    del seq
+
+    # -- chaos: dispatch faults fall back per request, replies stay exact
+    plan = FaultPlan({P_SERVE_DISPATCH: CHAOS_HITS})
+    replies, cstates, svc, srv, tel, cwall = serve_run(
+        torch, state, stream, schedules, plan=plan)
+    timings["3f chaos front end"] = cwall
+    check_replies(torch, replies, cstates)
+    degraded = sum(r.degraded for *_, r in replies)
+    summary.update(chaos_faults=plan.fired, chaos_fallbacks=srv.stats.fallbacks)
+    log(f"  chaos: {plan.fired} dispatch faults, {srv.stats.fallbacks} "
+        f"fallbacks, {degraded} degraded; {len(replies)} replies exact at "
+        f"their version (degraded at their stale version)")
+    if not plan.fired or not srv.stats.fallbacks:
+        raise AssertionError("the chaos run fell back nowhere")
+    if len(replies) != n_queries or svc.ring.pinned_versions():
+        raise AssertionError("chaos run lost a reply or left a pin")
+    del svc, srv, tel, replies, cstates
+
+    # -- what one lane call launches and reads against sequential calls;
+    # last, so that no profiler session runs before the front end and the
+    # sequential schedule are timed
+    if DEV == "cuda":
+        summary["lanes"] = lane_measure(torch, calls, sizes, timings)
+    log("  3f " + json.dumps(summary))
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1807,6 +2327,13 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["count_mm_masked"] += options_phase(torch, np, timings)
     timings["options phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log("== phase 3f: async serving (AsyncGraphService, lane-batched "
+        "dispatch)")
+    t0 = time.perf_counter()
+    serve_phase(torch, np, timings)
+    timings["serve phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

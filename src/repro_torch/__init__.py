@@ -15,6 +15,9 @@ counterpart:
     service's options: telemetry and adaptive thresholds, fault injection,
     the degrade ladder and circuit breaker, the op journal with snapshot
     compaction and recovery, the heartbeat monitor;
+  * :mod:`repro_torch.serve` -- the non-blocking serving front end:
+    version-pinned concurrent queries batched into lane-batched
+    dispatches on a CUDA stream of their own;
   * :mod:`repro_torch.data` -- the R-MAT generator;
   * :mod:`repro_torch.bench` -- the paper's Section 5 workload runner.
 

@@ -20,6 +20,12 @@ fixed order, never by atomics in an order that changes from run to run.
 That is what lets a delta BC answer equal a fresh ``bc_dependencies``
 bit for bit on the card.
 
+The lane forms (``bfs_lanes``, ``sssp_lanes``, ``bc_dependencies_lanes``)
+answer L single-source queries in one loop, the counterpart of the
+reference's ``jax.vmap`` over its while loops (``repro.serve.batch``): one
+sequence of ops over ``L * vcap`` outputs per pass and one host read per
+pass for every lane, each lane bit-identical to its single-source call.
+
 The batched-dense variants run the sources at once as semiring products
 (``semiring.py`` / ``repro_torch.kernels``): ``bfs_batched_dense`` one
 boolean product per level, ``sssp_batched_dense`` one min-plus product per
@@ -130,6 +136,62 @@ def _segments(index: torch.Tensor, vcap: int, grouped: bool) -> _Segments:
     return _Segments(order, torch.bincount(index, minlength=vcap))
 
 
+#: lane rows of a lane segment sum start on this many elements (128 bytes)
+_LANE_ALIGN = 32
+
+
+class _LaneSegments(NamedTuple):
+    """``_Segments.sum`` for every row of ``vals[L, E]`` in one reduction.
+
+    The rows are laid end to end, lane-major, and each row is padded by one
+    extra segment to a multiple of ``_LANE_ALIGN`` elements.  Every (lane,
+    vertex) segment then holds the same values in the same order, at the
+    same address alignment, as that vertex's segment of the single-source
+    sum: the card's segmented reduction chooses its load path from the
+    alignment of a segment's start, and with it the order of the float sum.
+    """
+
+    order: torch.Tensor | None
+    lengths: torch.Tensor       # int64[L * (vcap + 1)]
+    pad: int
+
+    def sum(self, vals: torch.Tensor) -> torch.Tensor:
+        if self.order is not None:
+            vals = vals[:, self.order]
+        if self.pad:
+            vals = torch.nn.functional.pad(vals, (0, self.pad))
+        L = vals.shape[0]
+        out = torch.segment_reduce(vals.reshape(-1), "sum",
+                                   lengths=self.lengths)
+        return out.view(L, -1)[:, :-1]
+
+
+def _lane_segments(seg: _Segments, lanes: int, n_edges: int) -> _LaneSegments:
+    pad = -n_edges % _LANE_ALIGN
+    lengths = torch.cat([seg.lengths, seg.lengths.new_tensor([pad])])
+    return _LaneSegments(seg.order, lengths.repeat(lanes), pad)
+
+
+def _lane_index(index: torch.Tensor, lanes: int, vcap: int) -> torch.Tensor:
+    """Flat ``lane * vcap + index`` targets (int64 ``[lanes * E]``), so one
+    scatter over ``lanes * vcap`` outputs serves every lane."""
+    off = torch.arange(lanes, device=index.device) * vcap
+    return (off[:, None] + index[None, :]).reshape(-1)
+
+
+def _set_rows(base: torch.Tensor, srcs: torch.Tensor,
+              value: torch.Tensor) -> torch.Tensor:
+    """``_set_at`` per row: row ``i`` gets ``value[i]`` at ``srcs[i]`` when
+    that source is in range."""
+    out = base.clone()
+    n = base.shape[1]
+    rows = torch.arange(base.shape[0], device=base.device)
+    idx = srcs.clamp(0, n - 1).long()
+    out[rows, idx] = torch.where((srcs >= 0) & (srcs < n),
+                                 value.to(base.dtype), out[rows, idx])
+    return out
+
+
 # --------------------------------- BFS -----------------------------------
 
 def bfs(state: GraphState, src) -> BFSResult:
@@ -154,6 +216,44 @@ def bfs(state: GraphState, src) -> BFSResult:
         dist = torch.where(newly, lvl + 1, dist)
         reached = reached | newly
         frontier, lvl = newly, lvl + 1
+    return BFSResult(ok, reached, dist, parent)
+
+
+def bfs_lanes(state: GraphState, srcs) -> BFSResult:
+    """``bfs`` from each of ``srcs`` (``int32[L]``) at once: every field
+    gains a leading lane axis and lane ``i`` equals ``bfs(state, srcs[i])``
+    bit for bit.
+
+    One pass computes every lane and keeps a finished lane's carry as it
+    was (what ``jax.vmap`` of the reference's ``lax.while_loop`` does); the
+    host reads whether any lane is still active once per pass.
+    """
+    srcs = _as_src(state, srcs)
+    vcap, L, dev = state.vcap, srcs.shape[0], state.device
+    e = live_edges(state)
+    ok = _src_ok(state, srcs)
+    idx = _lane_index(e.dst, L, vcap)
+    e_src = e.src.to(torch.int32)
+
+    reached = _set_rows(torch.zeros((L, vcap), dtype=torch.bool, device=dev),
+                        srcs, ok)
+    dist = torch.where(reached, 0, -1).to(torch.int32)
+    parent = torch.full((L, vcap), NOKEY, dtype=torch.int32, device=dev)
+    frontier = reached
+    lvl = torch.zeros((L,), dtype=torch.int32, device=dev)
+    active = frontier.any(dim=1) & (lvl < vcap)
+    while bool(active.any()):
+        act = frontier[:, e.src]
+        hit = _scatter_any(L * vcap, idx, act.reshape(-1)).view(L, vcap)
+        newly = hit & ~reached & active[:, None]
+        cand_par = _scatter_min(L * vcap, idx, torch.where(
+            act, e_src, NOKEY).reshape(-1), NOKEY).view(L, vcap)
+        parent = torch.where(newly, cand_par, parent)
+        dist = torch.where(newly, lvl[:, None] + 1, dist)
+        reached = reached | newly
+        frontier = torch.where(active[:, None], newly, frontier)
+        lvl = lvl + active.to(torch.int32)
+        active = frontier.any(dim=1) & (lvl < vcap)
     return BFSResult(ok, reached, dist, parent)
 
 
@@ -193,6 +293,44 @@ def sssp(state: GraphState, src) -> SSSPResult:
     # reachable.
     negcycle = torch.tensor(changed, device=state.device)
     parent = sssp_tree_parents(state, dist[None], src[None])[0]
+    return SSSPResult(ok_src & ~negcycle, negcycle, dist, parent)
+
+
+def relax_fixpoint_lanes(dist0: torch.Tensor, e: LiveEdges, vcap: int):
+    """``relax_fixpoint`` for each row of ``dist0`` (``f32[L, vcap]``).
+
+    Returns ``(dist, changed-at-exit bool[L], iterations int32[L])``; row
+    ``i`` runs exactly the passes the single-source loop would, at most
+    ``vcap``, and a row that stopped keeps its distances unchanged.
+    """
+    L, dev = dist0.shape[0], dist0.device
+    idx = _lane_index(e.dst, L, vcap)
+    dist = dist0
+    changed = torch.ones((L,), dtype=torch.bool, device=dev)
+    it = torch.zeros((L,), dtype=torch.int32, device=dev)
+    active = changed & (it < vcap)
+    while bool(active.any()):
+        cand = _scatter_min(L * vcap, idx, (dist[:, e.src] + e.w).reshape(-1),
+                            INF).view(L, vcap)
+        nd = torch.minimum(dist, cand)
+        changed = torch.where(active, (nd < dist).any(dim=1), changed)
+        dist = torch.where(active[:, None], nd, dist)
+        it = it + active.to(torch.int32)
+        active = changed & (it < vcap)
+    return dist, changed, it
+
+
+def sssp_lanes(state: GraphState, srcs) -> SSSPResult:
+    """``sssp`` from each of ``srcs`` at once (see ``bfs_lanes``); each
+    lane's ``negcycle`` is its own relax loop's exit state."""
+    srcs = _as_src(state, srcs)
+    vcap, L = state.vcap, srcs.shape[0]
+    e = live_edges(state)
+    ok_src = _src_ok(state, srcs)
+    dist0 = _set_rows(torch.full((L, vcap), INF, device=state.device), srcs,
+                      _pick(ok_src, 0.0, INF))
+    dist, negcycle, _ = relax_fixpoint_lanes(dist0, e, vcap)
+    parent = sssp_tree_parents(state, dist, srcs)
     return SSSPResult(ok_src & ~negcycle, negcycle, dist, parent)
 
 
@@ -246,6 +384,66 @@ def bc_dependencies(state: GraphState, src) -> BCResult:
                      _pick(ok, 1.0, 0.0))
     level, sigma, delta = _bc_coo_sweep(live_edges(state), vcap, level0,
                                         sigma0, level0 == 0, 0)
+    return BCResult(ok, delta, sigma, level)
+
+
+def _bc_coo_sweep_lanes(e: LiveEdges, vcap: int, level0, sigma0, front0,
+                        lvl0: torch.Tensor):
+    """``_bc_coo_sweep`` for each row of ``level0``/``sigma0``/``front0``
+    (``[L, vcap]``), row ``i`` resuming at its own pass ``lvl0[i]``.
+
+    The forward loop keeps a finished lane's carry as it was.  The backward
+    loop runs from the deepest level of any lane and adds to a lane only
+    from its own deepest level down, so each lane sums the same terms in the
+    same order as the single-source sweep (``_LaneSegments``).
+    """
+    L, dev = level0.shape[0], level0.device
+    n_edges = e.src.shape[0]
+    by_dst = _lane_segments(_segments(e.dst, vcap, grouped=False), L, n_edges)
+    by_src = _lane_segments(_segments(e.src, vcap, grouped=True), L, n_edges)
+    idx = _lane_index(e.dst, L, vcap)
+
+    level, sigma, frontier, lvl = level0, sigma0, front0, lvl0
+    active = frontier.any(dim=1) & (lvl < vcap)
+    while bool(active.any()):
+        act = frontier[:, e.src]
+        hit = _scatter_any(L * vcap, idx, act.reshape(-1)).view(L, vcap)
+        newly = hit & (level < 0) & active[:, None]
+        adds = by_dst.sum(torch.where(act, sigma[:, e.src], 0.0))
+        sigma = torch.where(newly, adds, sigma)
+        level = torch.where(newly, lvl[:, None] + 1, level)
+        frontier = torch.where(active[:, None], newly, frontier)
+        lvl = lvl + active.to(torch.int32)
+        active = frontier.any(dim=1) & (lvl < vcap)
+
+    sig_src = sigma[:, e.src]
+    sig_dst = torch.where(sigma[:, e.dst] > 0, sigma[:, e.dst], 1.0)
+    lev_src, lev_dst = level[:, e.src], level[:, e.dst]
+    deepest = level.amax(dim=1)
+    delta = torch.zeros((L, vcap), dtype=torch.float32, device=dev)
+    for l in range(int(deepest.max()), -1, -1):
+        on_lvl = (lev_src == l) & (lev_dst == l + 1)
+        contrib = torch.where(
+            on_lvl, sig_src / sig_dst * (1.0 + delta[:, e.dst]), 0.0)
+        delta = torch.where((deepest >= l)[:, None],
+                            delta + by_src.sum(contrib), delta)
+    delta = torch.where(level == 0, 0.0, delta)  # source contributes nothing
+    return level, sigma, delta
+
+
+def bc_dependencies_lanes(state: GraphState, srcs) -> BCResult:
+    """``bc_dependencies`` from each of ``srcs`` at once (see
+    ``bfs_lanes``), bit for bit, ``delta`` included."""
+    srcs = _as_src(state, srcs)
+    vcap, L, dev = state.vcap, srcs.shape[0], state.device
+    ok = _src_ok(state, srcs)
+    level0 = _set_rows(torch.full((L, vcap), -1, dtype=torch.int32,
+                                  device=dev), srcs, _pick(ok, 0, -1))
+    sigma0 = _set_rows(torch.zeros((L, vcap), device=dev), srcs,
+                       _pick(ok, 1.0, 0.0))
+    level, sigma, delta = _bc_coo_sweep_lanes(
+        live_edges(state), vcap, level0, sigma0, level0 == 0,
+        torch.zeros((L,), dtype=torch.int32, device=dev))
     return BCResult(ok, delta, sigma, level)
 
 

@@ -37,9 +37,12 @@ from repro_torch.core.queries import (
     BCResult,
     BFSResult,
     SSSPResult,
+    _as_src,
     _bc_coo_sweep,
+    _bc_coo_sweep_lanes,
     _pick,
     _set_at,
+    _set_rows,
     _src_ok,
     bc_dependencies,
     bc_level_cut,
@@ -47,6 +50,7 @@ from repro_torch.core.queries import (
     bfs_tree_parents,
     live_edges,
     relax_fixpoint,
+    relax_fixpoint_lanes,
     sssp,
     sssp_tree_parents,
 )
@@ -66,34 +70,43 @@ class IncrementalStats:
 def _poison(state: GraphState, prior_parent: torch.Tensor,
             prior_reached: torch.Tensor, prior_distf: torch.Tensor,
             dirty: torch.Tensor, check_weight: bool) -> torch.Tensor:
-    """bool[vcap]: vertices whose cached distance can no longer be trusted.
+    """bool[L, vcap]: per lane, vertices whose cached distance can no
+    longer be trusted (priors and dirty masks are ``[L, vcap]``; the
+    single-source queries pass one lane).
 
     Seeds: reached vertices that died, and vertices whose parent edge is
     actually gone.  A dirty parent only *suspects* the edge, so the new
     state is re-probed: if edge ``(parent[v], v)`` is still live with the
     same weight (ignored for BFS) the cached path survives.  Poison then
-    closes downward over the prior tree by pointer doubling.
+    closes downward over the prior tree by pointer doubling.  The edge probe
+    and the doubling run on flat ``lane * vcap + v`` indices, so each step
+    is one op for every lane.
     """
-    vcap = prior_parent.shape[0]
+    L, vcap = prior_parent.shape
+    dev = state.device
     parc = prior_parent.clamp(0, vcap - 1).long()
     has_par = (prior_parent != NOKEY) & prior_reached
-    suspect = has_par & dirty[parc]
-    self_id = torch.arange(vcap, dtype=torch.int32, device=state.device)
+    suspect = has_par & dirty.gather(1, parc)
+    self_id = torch.arange(vcap, dtype=torch.int32, device=dev).expand(L, -1)
     qu = torch.where(suspect, parc.to(torch.int32), NOKEY)
     qv = torch.where(suspect, self_id, NOKEY)
-    slot, _, edge_ok = find_edge_slots(state, qu, qv)
+    slot, _, edge_ok = find_edge_slots(state, qu.reshape(-1), qv.reshape(-1))
+    slot, edge_ok = slot.view(L, vcap), edge_ok.view(L, vcap)
     if check_weight:
-        edge_ok = edge_ok & (state.ew[slot] == prior_distf - prior_distf[parc])
+        edge_ok = edge_ok & (state.ew[slot]
+                             == prior_distf - prior_distf.gather(1, parc))
     poison = (prior_reached & ~state.alive) | (suspect & ~edge_ok)
+    poison = poison.reshape(-1)
     # Ancestor pointer: parent where one exists, else self (fixed point).
-    anc = torch.where(has_par, parc, self_id.long())
+    off = torch.arange(L, device=dev)[:, None] * vcap
+    anc = (torch.where(has_par, parc, self_id.long()) + off).reshape(-1)
     for _ in range(max(1, int(math.ceil(math.log2(max(vcap, 2)))))):
         poison = poison | poison[anc]
         anc = anc[anc]
     # With zero-weight edges the tight-edge parent "tree" can hold cycles,
     # which poison along parents never escapes; such chains never reach a
     # (parentless) root, so their cached distances are unverifiable.
-    return poison | has_par[anc]
+    return (poison | has_par.reshape(-1)[anc]).view(L, vcap)
 
 
 def _dirty_stats(prior_reached: torch.Tensor, dirty: torch.Tensor):
@@ -119,8 +132,8 @@ def delta_bfs(state: GraphState, prior: BFSResult, dirty: torch.Tensor,
     ok = _src_ok(state, src)
 
     priorf = prior.dist.float()
-    poison = _poison(state, prior.parent, prior.reached, priorf, dirty,
-                     check_weight=False)
+    poison = _poison(state, prior.parent[None], prior.reached[None],
+                     priorf[None], dirty[None], check_weight=False)[0]
     keep = prior.reached & ~poison
     dist0 = _set_at(torch.where(keep, priorf, INF), src, _pick(ok, 0.0, INF))
     distf, _, _ = relax_fixpoint(dist0, e._replace(w=torch.ones_like(e.w)),
@@ -144,8 +157,8 @@ def delta_sssp(state: GraphState, prior: SSSPResult, dirty: torch.Tensor,
     ok_src = _src_ok(state, src)
 
     prior_reached = prior.dist < INF
-    poison = _poison(state, prior.parent, prior_reached, prior.dist, dirty,
-                     check_weight=True)
+    poison = _poison(state, prior.parent[None], prior_reached[None],
+                     prior.dist[None], dirty[None], check_weight=True)[0]
     keep = prior_reached & ~poison
     dist0 = _set_at(torch.where(keep, prior.dist, INF), src,
                     _pick(ok_src, 0.0, INF))
@@ -184,6 +197,67 @@ def _delta_bc_at_cut(state: GraphState, prior: BCResult, cut: int,
     level, sigma, delta = _bc_coo_sweep(live_edges(state), state.vcap,
                                         level0, sigma0, level0 == cut - 1,
                                         cut - 1)
+    return BCResult(ok, delta, sigma, level)
+
+
+# ------------------------------ lane forms --------------------------------
+# L delta queries at once, each with its own prior, dirty mask or cut and
+# source (``repro_torch.serve.batch``'s delta rung; the reference vmaps the
+# single-source functions).  Lane i equals the single-source call on lane
+# i's inputs bit for bit.
+
+def delta_bfs_lanes(state: GraphState, prior: BFSResult, dirty: torch.Tensor,
+                    srcs) -> BFSResult:
+    """``delta_bfs`` per lane: ``prior`` fields and ``dirty`` are stacked
+    ``[L, vcap]``, ``srcs`` is ``int32[L]``."""
+    srcs = _as_src(state, srcs)
+    e = live_edges(state)
+    ok = _src_ok(state, srcs)
+    priorf = prior.dist.float()
+    poison = _poison(state, prior.parent, prior.reached, priorf, dirty,
+                     check_weight=False)
+    keep = prior.reached & ~poison
+    dist0 = _set_rows(torch.where(keep, priorf, INF), srcs,
+                      _pick(ok, 0.0, INF))
+    distf, _, _ = relax_fixpoint_lanes(
+        dist0, e._replace(w=torch.ones_like(e.w)), state.vcap)
+    reached = distf < INF
+    dist = torch.where(reached, distf, -1.0).to(torch.int32)
+    return BFSResult(ok, reached, dist, bfs_tree_parents(state, dist, srcs))
+
+
+def delta_sssp_lanes(state: GraphState, prior: SSSPResult,
+                     dirty: torch.Tensor, srcs) -> SSSPResult:
+    """``delta_sssp`` per lane (see ``delta_bfs_lanes``); a lane's
+    ``negcycle`` is its own relax loop's exit state."""
+    srcs = _as_src(state, srcs)
+    e = live_edges(state)
+    ok_src = _src_ok(state, srcs)
+    prior_reached = prior.dist < INF
+    poison = _poison(state, prior.parent, prior_reached, prior.dist, dirty,
+                     check_weight=True)
+    keep = prior_reached & ~poison
+    dist0 = _set_rows(torch.where(keep, prior.dist, INF), srcs,
+                      _pick(ok_src, 0.0, INF))
+    dist, negcycle, _ = relax_fixpoint_lanes(dist0, e, state.vcap)
+    parent = sssp_tree_parents(state, dist, srcs)
+    return SSSPResult(ok_src & ~negcycle, negcycle, dist, parent)
+
+
+def delta_bc_at_cut_lanes(state: GraphState, prior: BCResult, cuts,
+                          srcs) -> BCResult:
+    """``_delta_bc_at_cut`` per lane: ``cuts`` is ``int32[L]`` and each
+    lane resumes its forward sweep at its own ``cut - 1`` (every cut
+    ``>= 1``, the callers' gate)."""
+    srcs = _as_src(state, srcs)
+    cuts = torch.as_tensor(cuts, dtype=torch.int32, device=state.device)
+    ok = _src_ok(state, srcs)
+    keep = (prior.level >= 0) & (prior.level < cuts[:, None])
+    level0 = torch.where(keep, prior.level, -1)
+    sigma0 = torch.where(keep, prior.sigma, 0.0)
+    level, sigma, delta = _bc_coo_sweep_lanes(
+        live_edges(state), state.vcap, level0, sigma0,
+        level0 == (cuts - 1)[:, None], cuts - 1)
     return BCResult(ok, delta, sigma, level)
 
 

@@ -83,7 +83,7 @@ from .incremental import (
     results_equal,
 )
 from .scheduler import SchedulerStats, StreamScheduler
-from .version_ring import PinnedSnapshot, VersionRing
+from .version_ring import PinnedSnapshot, VersionRing, stream_event
 
 _INCREMENTAL = {"bfs": incremental_bfs, "sssp": incremental_sssp,
                 "bc": incremental_bc}
@@ -143,6 +143,9 @@ class ServiceStats(CounterStruct):
 class _CacheSlot:
     version: int
     result: object  # BFSResult | SSSPResult | BCResult
+    #: on the card, recorded on the storing thread's stream after the
+    #: result's work: a reader on another stream waits for it
+    ready: Optional[torch.cuda.Event] = None
 
 
 def prune_result_cache(cache: Dict, max_cached: int, floor: int,
@@ -353,10 +356,16 @@ class BaseGraphService:
         # (still correct at ITS version) survives intact.
         inject(P_CACHE_STORE)
         # Delete-then-insert moves the key to the back of the dict so the
-        # front-of-dict eviction is LRU, not FIFO.
+        # front-of-dict eviction is LRU, not FIFO.  A slot at a later
+        # version stays: a reply pinned to an older version (the serving
+        # front end's) must not replace a newer answer.
+        ready = stream_event(self.ring.latest.state.device)
         with self._cache_lock:
+            old = self._cache.get(key)
+            if old is not None and old.version > version:
+                return
             self._cache.pop(key, None)
-            self._cache[key] = _CacheSlot(version, result)
+            self._cache[key] = _CacheSlot(version, result, ready)
             # dirty_between still spans slots at oldest_version - 1, so
             # only versions strictly below that are unservable.
             prune_result_cache(self._cache, self.max_cached,
@@ -377,6 +386,11 @@ class BaseGraphService:
         ``ladder=False`` (a resilience-ladder retry) must bypass the
         cache/delta rungs and recompute fully from a pinned snapshot."""
         raise NotImplementedError
+
+    def _icn_validated(self, result) -> bool:
+        """The ``validated`` flag of a single-collect reply (the reference's
+        sharded service carries its cross-shard agreement here)."""
+        return False
 
     # ----------------------------- telemetry -----------------------------
 
@@ -567,7 +581,8 @@ class BaseGraphService:
             self.stats.queries += 1
             self.stats.collects += 1
             self.stats.count(qmode)
-            return QueryReply(res, entry.version, qmode, False,
+            return QueryReply(res, entry.version, qmode,
+                              self._icn_validated(res),
                               ScanStats(collects=1, validated=False))
         return self._query_cn(kind, srcs, key, force_full=force_full)
 

@@ -34,11 +34,26 @@ from repro_torch.resil.faults import P_RING_EVICT, inject
 
 
 class RingEntry(NamedTuple):
-    """One committed version: ring-assigned id, state, dirty set vs parent."""
+    """One committed version: ring-assigned id, state, dirty set vs parent,
+    and (on the card) an event recorded on the committing thread's stream
+    once the state and the dirty set were enqueued, which a reader on
+    another stream waits for (``ready_events``)."""
 
     version: int
     state: GraphState
     dirty: torch.Tensor  # bool[vcap] -- vertices disturbed by THIS commit
+    ready: Optional[torch.cuda.Event] = None
+
+
+def stream_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event recorded on ``device``'s current stream (None off the
+    card): a reader on another stream waits for it to see what this
+    thread enqueued so far."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 @dataclass
@@ -80,7 +95,8 @@ class VersionRing:
         first = RingEntry(
             version=0, state=initial_state,
             dirty=torch.zeros((initial_state.vcap,), dtype=torch.bool,
-                              device=initial_state.device))
+                              device=initial_state.device),
+            ready=stream_event(initial_state.device))
         self._window: deque[RingEntry] = deque([first])
         self._pins: dict[int, int] = {}          # version -> pin count
         self._parked: dict[int, RingEntry] = {}  # pinned but rotated out
@@ -113,13 +129,14 @@ class VersionRing:
                 inject(P_RING_EVICT)
             prev = self._window[-1]
         dirty = dirty_vertices_padded(prev.state, state)
+        ready = stream_event(state.device)
         with self._lock:
             if self._window[-1].version != prev.version:
                 raise RuntimeError(
                     "concurrent VersionRing.commit: commits must be "
                     "serialized by the scheduler")
             entry = RingEntry(version=prev.version + 1, state=state,
-                              dirty=dirty)
+                              dirty=dirty, ready=ready)
             self._window.append(entry)
             while len(self._window) > self.depth:
                 old = self._window.popleft()
@@ -137,6 +154,15 @@ class VersionRing:
                 if e.version == version:
                     return e
             return self._parked.get(version)
+
+    def ready_events(self, version: int) -> list:
+        """The commit events of every resident version up to ``version``:
+        a stream that waits for them sees those states and dirty sets
+        written, whichever thread's stream committed them."""
+        with self._lock:
+            entries = list(self._window) + list(self._parked.values())
+        return [e.ready for e in entries
+                if e.version <= version and e.ready is not None]
 
     def get(self, version: int) -> Optional[GraphState]:
         e = self.get_entry(version)

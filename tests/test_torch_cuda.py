@@ -636,3 +636,110 @@ def test_cuda_checkpoint_roundtrips_graph_state(cuda_device, tmp_path):
     for a, b in zip(state_to_numpy(svc.ring.latest.state),
                     state_to_numpy(rec.ring.latest.state)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_edges", [31, 32, 33, 1000, 4099])
+def test_cuda_lane_segment_sum_matches_single_source(cuda_device, n_edges):
+    """The card's segmented sum picks its load path from each segment's
+    address alignment: the lane sum (rows padded to 32 edges) must equal
+    the single-source sum bit for bit, hub segments longer than a tile
+    included."""
+    from repro_torch.core import queries as tq
+
+    rng = np.random.default_rng(n_edges)
+    idx = np.where(rng.random(n_edges) < 0.6, 0,
+                   rng.integers(0, 40, n_edges))  # vertex 0 a hub
+    idx = torch.tensor(idx, device=cuda_device)
+    seg = tq._segments(idx, 40, grouped=False)
+    vals = torch.tensor(rng.standard_normal((7, n_edges)),
+                        dtype=torch.float32, device=cuda_device)
+    got = tq._lane_segments(seg, 7, n_edges).sum(vals)
+    for i in range(7):
+        assert torch.equal(got[i], seg.sum(vals[i])), i
+
+
+@pytest.mark.cuda
+def test_cuda_async_front_end_bit_identical(cuda_device):
+    """The front end on the card: the dispatcher's own stream, replies
+    equal to sequential queries on both rungs, no pin left."""
+    from repro_torch.core import PUTE
+    from repro_torch.core.queries import bc_dependencies, bfs, sssp
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.serve import AsyncGraphService
+
+    fresh = {"bfs": bfs, "sssp": sssp, "bc": bc_dependencies}
+    svc = GraphService(load_rmat_graph(1024, 8192, seed=4, device="cuda"),
+                       batch_size=8)
+    srv = AsyncGraphService(svc, max_batch=16).start()
+    try:
+        assert srv._stream is not None
+        for step in range(3):
+            futs = [(k, s, srv.query_async(k, s)) for k in fresh
+                    for s in range(0, 96, 8)]
+            for k, s, f in futs:
+                reply = f.result(timeout=300)
+                exp = fresh[k](svc.ring.get(reply.version), s)
+                assert all(torch.equal(a, b)
+                           for a, b in zip(reply.result, exp)), (k, s, step)
+            svc.submit_many([(PUTE, 8 * step + i, 3 * i, 1.0)
+                             for i in range(8)])
+    finally:
+        srv.stop(timeout=300)
+    assert srv.stats.batched_dispatches > 0
+    assert svc.stats.delta > 0
+    assert svc.ring.pinned_versions() == []
+
+
+@pytest.mark.cuda
+def test_cuda_direct_queries_race_the_front_end(cuda_device):
+    """A client thread calls ``service.query`` on the default stream on
+    the same keys the front end serves on its own stream, while commits
+    land: the dispatcher reads a prior the client just stored only after
+    that slot's event, so every reply of either path equals a fresh query
+    at the version it names."""
+    import threading
+
+    from repro_torch.core import PUTE
+    from repro_torch.core.queries import bc_dependencies, bfs, sssp
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.serve import AsyncGraphService
+
+    fresh = {"bfs": bfs, "sssp": sssp, "bc": bc_dependencies}
+    svc = GraphService(load_rmat_graph(1024, 8192, seed=5, device="cuda"),
+                       ring_depth=8, batch_size=8)
+    states = {0: svc.ring.latest.state}
+    keys = [(k, s) for k in fresh for s in range(0, 64, 8)]
+    replies, errs = [], []
+
+    def direct():
+        try:
+            for k, s in keys:
+                replies.append((k, s, svc.query(k, s)))
+        except Exception as e:  # pragma: no cover - harness guard
+            errs.append(e)
+
+    srv = AsyncGraphService(svc, max_batch=16).start()
+    try:
+        futs = []
+        for step in range(4):
+            t = threading.Thread(target=direct)
+            t.start()
+            futs += [(k, s, srv.query_async(k, s)) for k, s in keys]
+            svc.submit_many([(PUTE, 8 * step + i, 5 * i + 1, 1.0)
+                             for i in range(8)])
+            states[svc.version] = svc.ring.latest.state
+            t.join(timeout=300)
+            assert not t.is_alive(), "direct client hung"
+        replies += [(k, s, f.result(timeout=300)) for k, s, f in futs]
+    finally:
+        srv.stop(timeout=300)
+    assert not errs, errs
+    for k, s, reply in replies:
+        exp = fresh[k](states[reply.version], s)
+        assert all(torch.equal(a, b) for a, b in zip(reply.result, exp)), \
+            (k, s, reply.version, reply.mode)
+    assert srv.stats.fallbacks == 0 and svc.stats.errors == 0
+    assert svc.ring.pinned_versions() == []

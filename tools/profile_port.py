@@ -21,6 +21,13 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
   * ``sssp_batched_dense masked`` -- one batched SSSP at the batched
     phase's shape (``SRC_CHUNK`` sources of the initial R-MAT state, the
     tile view's occupancy as the mask);
+  * ``full rung, lane-batched`` / ``full rung, sequential`` -- phase 3f's
+    lane work (``chip_smoke.serve_lane_inputs``: the stream's last state,
+    ``SERVE_BATCH`` sources): one 32-lane ``bfs_lanes``, ``sssp_lanes``
+    and ``bc_dependencies_lanes`` call, against the same 96 queries as
+    single-source calls; ``delta rung, ...`` the same for the delta lane
+    forms on priors ``RING_DEPTH`` versions older; each with its host reads
+    and its launches, host reads and device time per query;
   * ``static bfs query`` -- one BFS query of the Section 5 workload's
     static mode as ``run_mix`` runs it (``chip_smoke.py`` 3c's graph and
     the first query source of its BFS op stream): ``dense_views`` of the
@@ -39,9 +46,10 @@ For each window it prints the host wall time, the summed device time of
 every kernel, the device busy share (device time / wall; the profiler's
 own host overhead lengthens the wall), the number of kernel launches and
 the kernels that take the most device time, then one JSON line with the
-same numbers.  For the SSSP call and the decode steps it also counts the
-host's reads of device values (per relax pass, per step), in a second,
-unprofiled run under ``torch.cuda.set_sync_debug_mode("warn")`` (each
+same numbers.  For the SSSP call, the lane windows and the decode steps it
+also counts the host's reads of device values (per relax pass, per query,
+per step), in a second, unprofiled run under
+``torch.cuda.set_sync_debug_mode("warn")`` (``chip_smoke.host_reads``: each
 synchronising read warns once), and for the decode steps their unprofiled
 wall time.
 It needs CUDA and exits nonzero without it.
@@ -99,22 +107,6 @@ def profile_window(torch, name, fn, top=8):
                     for k, c, us in rows[:top]]}
 
 
-def host_reads(torch, fn) -> int:
-    """Synchronising device-to-host reads while ``fn`` runs."""
-    import warnings
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
 def main() -> int:
     import torch
 
@@ -167,13 +159,15 @@ def main() -> int:
     sssp()  # warm: the kernel's first launch loads its module
     out.append(profile_window(torch, "sssp_batched_dense masked", sssp))
     before = kmp.LAUNCHES["minplus_mm_masked"]
-    reads = host_reads(torch, sssp)
+    reads = smoke.host_reads(torch, sssp)
     passes = kmp.LAUNCHES["minplus_mm_masked"] - before
     out[-1].update(passes=passes, host_reads=reads,
                    host_reads_per_pass=reads / max(passes, 1))
     print(f"  {passes} relax passes, {reads} synchronising host reads "
           f"({reads / max(passes, 1):.2f} per pass)", flush=True)
     del state, svc, view, w, alive, srcs
+    torch.cuda.empty_cache()
+    out += serve_windows(torch, np, smoke)
     torch.cuda.empty_cache()
     for query in ("bfs", "sssp"):
         out.append(static_window(torch, np, smoke, query))
@@ -212,6 +206,50 @@ def options_window(torch, smoke, state, stream, sources):
         journal.close()
         tel.close()
     return row
+
+
+def serve_windows(torch, np, smoke):
+    """Phase 3f's lane work: its R-MAT state after the commit stream, its
+    sources padded to ``SERVE_BATCH`` (``chip_smoke.serve_lane_inputs``),
+    and per rung one lane-batched call of each kind against the same
+    lanes as single-source calls (``chip_smoke.lane_calls``): launches,
+    host reads, device time and busy share, per query beside the window's
+    totals."""
+    from repro_torch.data import load_rmat_graph
+
+    state = load_rmat_graph(smoke.N_VERTICES, smoke.N_EDGES, seed=smoke.SEED,
+                            device="cuda")
+    stream, hot_base = smoke.commit_stream(
+        np, np.random.default_rng(smoke.SEED), smoke.N_VERTICES)
+    sources = smoke.serve_sources(torch, state, hot_base)
+    state, srcs, delta = smoke.serve_lane_inputs(
+        torch, smoke.stream_states(state, stream), sources)
+    calls = smoke.lane_calls(torch, state, srcs, delta)
+    out = []
+    for rung in ("full", "delta"):
+        n = sum(len(delta[k]) if rung == "delta" else len(srcs)
+                for k in smoke.KINDS)
+        for label, pick in (("lane-batched", 0), ("sequential", 1)):
+            fns = [calls[kind, rung][pick] for kind in smoke.KINDS]
+
+            def run(fns=fns):
+                for fn in fns:
+                    fn()
+
+            run()  # warm-up
+            row = profile_window(torch, f"{rung} rung, {label}, bfs+sssp+bc,"
+                                 f" {n} queries", run)
+            reads = smoke.host_reads(torch, run)
+            row.update(queries=n, host_reads=reads,
+                       launches_per_query=row["launches"] / n,
+                       host_reads_per_query=reads / n,
+                       device_ms_per_query=row["device_ms"] / n)
+            print(f"  per query: {row['launches_per_query']:.1f} launches, "
+                  f"{reads / n:.2f} host reads, "
+                  f"{row['device_ms_per_query']:.3f} ms device, "
+                  f"{row['wall_ms'] / n:.3f} ms wall", flush=True)
+            out.append(row)
+    return out
 
 
 def static_window(torch, np, smoke, query_name):
@@ -286,7 +324,7 @@ def lm_windows(torch, smoke):
         decode()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
-        reads = host_reads(torch, decode)
+        reads = smoke.host_reads(torch, decode)
         out[-1].update(unprofiled_ms_per_step=step_ms,
                        host_reads_per_step=reads / DECODE_STEPS)
         print(f"  unprofiled decode {step_ms:.2f} ms/step, "
