@@ -41,7 +41,13 @@ exit code:
                  at the static mode's shape (STATIC_ROWS rows), and its two
                  packs are timed on their own; minplus_mm at the static
                  mode's call, one row of the widest SSSP pass through
-                 ops.minplus_mm_against, bounded on that one row;
+                 ops.minplus_mm_against, bounded on that one row.  The
+                 three masked kernels are also held and timed at phase
+                 3g's band shapes (band_shape_kernels: rank 0's band of
+                 4096 rows; BFS and SSSP 1 x 4096 x 16384, the ring's
+                 counting products 2048 x 4096 x 16384 and, on the
+                 transposed band, 2048 x 16384 x 4096), through the raw
+                 entry points and through the ops path 3g runs;
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -126,9 +132,31 @@ exit code:
                  Prints replies and rung tallies, dispatches and the lane
                  histogram, serve_request_us p50/p99 per kind, commits
                  that overlapped a dispatch and peak memory;
+  3g. sharded -- the sharded tile-grid engine (repro_torch.shard) on SHARDS
+                 ranks of the one card (GraphMesh(["cuda:0"] * 4), band
+                 4096): 3a's state and stream through the local
+                 GraphService first (with telemetry whose accountant
+                 measures nothing), then through ShardedGraphService(
+                 use_kernel=True, src_chunk=SRC_CHUNK) once per bc_mode
+                 (gather, ring): a cold bc_scores, per commit BFS/SSSP/BC
+                 from 3a's sources (ladder_round), bc_scores every
+                 RING_DEPTH commits.  Every reply must equal the local
+                 service's at the same version bit for bit (BC delta and
+                 bc_scores to 1e-5) with the cross-rank agreement set; the
+                 delta and the full rung must run; bool_mm_masked,
+                 minplus_mm_masked and count_mm_masked must launch in the
+                 sharded runs; AsyncGraphService over the sharded service
+                 (three clients, two commits landing) must answer every
+                 request as the single-source query at its version.
+                 Prints per kind and rung walls against the local
+                 service's, bc_scores walls, collective bytes per query
+                 and the peak memory of each mode;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
-                 launches are those of 3a and 3e.
+                 launches are those of 3a, 3e and 3g; bool_mm_masked's and
+                 minplus_mm_masked's those of 3b, 3c and 3g.  The masked
+                 rows carry their band-shape timings under "band" (and
+                 count_mm_masked's backward under "band_t").
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -146,6 +174,7 @@ N_VERTICES, N_EDGES, SEED = 16384, 163840, 0
 SRC_CHUNK = 2048
 COMMITS, OPS_PER_COMMIT, HOT_FRAC = 16, 24, 0.05
 RING_DEPTH, BATCH_SIZE = 8, 32
+SHARDS = 4              # ranks of 3g's mesh, all on the one card
 DEV = "cuda"
 FP32_PEAK = 67e12       # H100 SXM FP32 outside the tensor cores, FLOP/s
 FP32_NONFMA = 33.5e12   # the same, one non-FMA FP32 instruction per op, op/s
@@ -198,7 +227,7 @@ FLASH_SWEEP = [(1, 4, 4, 32, 32, 16, True, None),
 # Keys a kernel row may carry beyond the required ones: the boolean rows'
 # FP32 yardstick, the static mode's shape and the packs' own times.
 EXTRA_KEYS = ("matmul_fp32_ms", "static", "pack_right_ms", "pack_left_ms",
-              "pack_left_static_ms")
+              "pack_left_static_ms", "band", "band_t")
 LM_ARCHS = ("mistral_nemo_12b", "granite_moe_1b")
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # Two bf16 forward passes that differ only in where they round (the flash
@@ -488,11 +517,13 @@ def _nonzero(x):
 
 
 def work_masks(x, a, nonidentity=_nonzero):
-    """Which (WORK_BM x WORK_BK) slabs of ``x`` and (WORK_BK x WORK_BN)
-    blocks of ``a`` hold a non-identity entry."""
+    """Which (WORK_BM x WORK_BK) slabs of ``x`` (all its rows when it has
+    fewer than WORK_BM) and (WORK_BK x WORK_BN) blocks of ``a`` hold a
+    non-identity entry."""
     from repro_torch.kernels import ops as kops
 
-    return (kops._slab_mask(x, WORK_BM, WORK_BK, nonidentity).bool(),
+    bm = min(WORK_BM, x.shape[0])
+    return (kops._slab_mask(x, bm, WORK_BK, nonidentity).bool(),
             kops._slab_mask(a, WORK_BK, WORK_BN, nonidentity).bool())
 
 
@@ -528,16 +559,18 @@ def capture_main_products(torch, state, view):
     """The inputs the main path hands the kernels: chunk 0 of the all-source
     sweep (``bc_batched_dense``'s adjacency, occupancy and per-level
     products), run with the plain product.  Returns the adjacency, its
-    occupancy and the forward input with the most nonzero block pairs."""
+    occupancy, and the forward and the backward input with the most
+    nonzero block pairs."""
     from repro_torch.core import queries
     from repro_torch.core.tiles import dense_views_from_tiles
 
     adj_mask, _, alive = dense_views_from_tiles(state, view)
     a = (adj_mask & alive[:, None] & alive[None, :]).float()
     fwd = Capture(lambda x: x @ a, a, _nonzero)
+    bwd = Capture(lambda g: g @ a.t(), a.t(), _nonzero)
     srcs = torch.arange(SRC_CHUNK, dtype=torch.int32, device=a.device)
-    queries.bc_sweep_ops(fwd, lambda g: g @ a.t(), srcs, alive, a.shape[0])
-    return a, view.occ, fwd.wide
+    queries.bc_sweep_ops(fwd, bwd, srcs, alive, a.shape[0])
+    return a, view.occ, fwd.wide, bwd.wide
 
 
 def product_work(x, a, nonidentity=_nonzero, a_bytes=4):
@@ -553,8 +586,9 @@ def product_work(x, a, nonidentity=_nonzero, a_bytes=4):
     s_blocks = float((sm & am.any(dim=1)[None, :]).sum())
     a_blocks = float((am & sm.any(dim=0)[:, None]).sum())
     S, N = x.shape[0], a.shape[1]
-    flops = 2.0 * WORK_BM * WORK_BN * WORK_BK * pairs
-    nbytes = (4.0 * (s_blocks * WORK_BM * WORK_BK + S * N)
+    bm = min(WORK_BM, S)
+    flops = 2.0 * bm * WORK_BN * WORK_BK * pairs
+    nbytes = (4.0 * (s_blocks * bm * WORK_BK + S * N)
               + a_bytes * a_blocks * WORK_BK * WORK_BN
               + 4.0 * (sm.numel() + am.numel()))
     return flops, nbytes
@@ -609,11 +643,10 @@ def kernel_row(torch, name, kern, plain, work, peak, library=None,
     return row
 
 
-def main_shape_kernels(torch, state, view, errs):
+def main_shape_kernels(torch, view, a, occ, x, errs):
     from repro_torch.kernels import count_mm as kc
     from repro_torch.kernels import ops as kops
 
-    a, occ, x = capture_main_products(torch, state, view)
     S, V = x.shape
     log(f"  main-path product: s {S}x{V} (max count {float(x.max()):.0f}, "
         f"{float((x != 0).float().mean()):.4f} nonzero) x adjacency "
@@ -776,6 +809,128 @@ def main_shape_traversal(torch, state, view, errs):
                    lambda: kmp.minplus_mm_masked_plain(dr, big, dmr, am_m),
                    product_work(d, big, torch.isfinite), FP32_NONFMA,
                    plain_rows=R)]
+
+
+def band_row(row, extra) -> dict:
+    """The keys of a band-shape timing kept in a kernel row."""
+    out = {key: row[key] for key in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
+    out.update(extra)
+    return out
+
+
+def band_shape_kernels(torch, state, view, x, g, rows, errs):
+    """The three masked kernels at 3g's band shapes: rank 0's band of the
+    SHARDS-way grid (rows :V/SHARDS of the live adjacency and weights, its
+    occupancy rows), held against their plain versions through the raw
+    entry points and through the ``ops`` path 3g runs, then timed with
+    their bound.  BFS and SSSP at 3g's query shape (one source, 3a's hub:
+    its widest BFS level and its distances, on the band's columns), the
+    ring's counting products at a bc_scores chunk (``x``/``g``: the widest
+    forward and backward inputs of the all-source sweep's first chunk),
+    forward ``[chunk, band] x [band, V]`` and backward ``[chunk, V] x [V,
+    band]`` on the transposed band.  Adds ``band`` (and ``band_t``) to the
+    rows of ``rows``."""
+    from repro_torch.core import queries
+    from repro_torch.core.tiles import dense_views_from_tiles
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import count_mm as kc
+    from repro_torch.kernels import minplus_mm as kmp
+    from repro_torch.kernels import ops as kops
+
+    inf = float("inf")
+    V, tile = N_VERTICES, view.tile
+    B = V // SHARDS
+    adj, w, alive = dense_views_from_tiles(state, view)
+    live2 = alive[:B, None] & alive[None, :]
+    a = (adj[:B] & live2).float()                      # [B, V]
+    big = torch.where(live2, w[:B], inf).contiguous()  # [B, V]
+    occ = view.occ[:B // tile].contiguous()            # [nt/n, nt]
+    del adj, w, live2
+    dist = queries.bfs(state, 0).dist
+    widest = int(torch.bincount(dist[dist > 0]).argmax())
+    f1 = (dist[:B] == widest).float()[None]            # [1, B]
+    d1 = queries.sssp(state, 0).dist[:B][None].contiguous()
+    xb = x[:, :B].contiguous()                         # [chunk, B]
+    at = a.t()                                         # [V, B], a view
+    occ_t = occ.t()
+    log(f"  band {B} of {V} (rank 0 of {SHARDS}): {float((a != 0).sum()):.0f}"
+        f" live edges, {float((occ > 0).float().mean()):.4f} of its "
+        f"128-tiles live; BFS level {widest} ({int(f1.sum())} of the band's "
+        f"vertices), SSSP row {int(torch.isfinite(d1).sum())} finite")
+    by_name = {row["name"]: row for row in rows}
+
+    # bool_mm_masked: [1 -> BM, B] x [B, V], mask [nt/n, nt]
+    fp = torch.zeros((kb.BM, B), device=a.device)
+    fp[:1] = f1
+    fm = kops._slab_mask(fp, kb.BM, kb.BK, _nonzero)
+    am_b = kops._coarsen_mask(occ, tile, kb.BK, B // kb.BK, kb.BN,
+                              V // kb.BN)
+    apk = kb.pack_right(a)
+    what = f"band 1x{B}x{V}"
+    k = kb.bool_mm_masked(fp, a, fm, am_b, apk)
+    errs.check(torch, "bool_mm_masked", k,
+               kb.bool_mm_masked_plain(fp, a, fm, am_b), True, what)
+    errs.check(torch, "bool_mm_masked", kops.bool_mm_against(
+        a, amask=occ, tile=tile)(f1), kb.bool_mm_ref(f1, a), True,
+        f"{what} through ops")
+    row = kernel_row(torch, "bool_mm_masked",
+                     lambda: kb.bool_mm_masked(fp, a, fm, am_b, apk),
+                     lambda: kb.bool_mm_masked_plain(fp, a, fm, am_b),
+                     product_work(f1, a, a_bytes=1), INT8_PEAK,
+                     lambda: torch.matmul(f1, a))
+    by_name["bool_mm_masked"]["band"] = band_row(
+        row, {"shape": [1, B, V], "library": "torch.matmul (FP32 counts)"})
+
+    # minplus_mm_masked: [1 -> BM, B] x [B, V], mask [nt/n, nt] narrowed
+    dp = torch.full((kmp.BM, B), inf, device=a.device)
+    dp[:1] = d1
+    dm = kops._slab_mask(dp, kmp.BM, kmp.BK, torch.isfinite)
+    am_m = kops._coarsen_mask(occ, tile, kmp.BK, B // kmp.BK, kmp.BN,
+                              V // kmp.BN) & kops.minplus_live_blocks(big)
+    k = kmp.minplus_mm_masked(dp, big, dm, am_m)
+    errs.check(torch, "minplus_mm_masked", k,
+               kmp.minplus_mm_masked_plain(dp, big, dm, am_m), True, what)
+    errs.check(torch, "minplus_mm_masked", kops.minplus_mm_against(
+        big, amask=occ, tile=tile)(d1), kmp.minplus_mm_plain(dp, big)[:1],
+        True, f"{what} through ops")
+    row = kernel_row(torch, "minplus_mm_masked",
+                     lambda: kmp.minplus_mm_masked(dp, big, dm, am_m),
+                     lambda: kmp.minplus_mm_masked_plain(dp, big, dm, am_m),
+                     product_work(d1, big, torch.isfinite), FP32_NONFMA)
+    by_name["minplus_mm_masked"]["band"] = band_row(row,
+                                                    {"shape": [1, B, V]})
+
+    # count_mm_masked, the ring's forward [chunk, B] x [B, V] and backward
+    # [chunk, V] x [V, B] products on a bc_scores chunk
+    for key, s_in, right, mask in (("band", xb, a, occ),
+                                   ("band_t", g, at, occ_t)):
+        m, kd = s_in.shape
+        n = right.shape[1]
+        sm = kops._slab_mask(s_in, kc.BM, kc.BK, _nonzero)
+        am = kops._coarsen_mask(mask, tile, kc.BK, kd // kc.BK, kc.BN,
+                                n // kc.BN)
+        planes = kc.right_planes(right)
+        exact = key == "band"  # integer counts; the backward flow is float
+        what = f"{key} {m}x{kd}x{n}"
+        k = kc.count_mm_masked(s_in, right, sm, am, planes)
+        errs.check(torch, "count_mm_masked", k,
+                   kc.count_mm_masked_plain(s_in, right, sm, am), exact,
+                   what)
+        errs.check(torch, "count_mm_masked", kops.count_mm_against(
+            right, amask=mask, tile=tile)(s_in), k, True,
+            f"{what} through ops")
+        pieces = [p.float() for p in kc.split3(s_in)]
+        ops_count = sum(product_work(p, right)[0] for p in pieces)
+        del pieces
+        row = kernel_row(
+            torch, "count_mm_masked",
+            lambda: kc.count_mm_masked(s_in, right, sm, am, planes),
+            lambda: kc.count_mm_masked_plain(s_in, right, sm, am),
+            (ops_count, product_work(s_in, right)[1]), BF16_PEAK,
+            lambda: torch.matmul(s_in, right))
+        by_name["count_mm_masked"][key] = band_row(row,
+                                                   {"shape": [m, kd, n]})
 
 
 def bool_kernel_rows(torch, f, a, apk, fm, am_b):
@@ -2240,6 +2395,249 @@ def serve_phase(torch, np, timings):
     return summary
 
 
+# --------------------------------- phase 3g --------------------------------
+
+SHARD_WAIT = 300        # seconds any one wait of 3g's front-end check may take
+
+
+class CollectiveTally:
+    """A cost accountant that measures nothing: it keeps only the
+    collective bytes the sharded queries deposit (``shard.queries
+    ._account``), so the query spans carry them, and the allocator's peak
+    statistics stay 3g's to read."""
+
+    def __init__(self):
+        self.last = None
+
+    def call(self, key, fn, *args):
+        self.last = {}
+        return fn(*args)
+
+
+def shard_telemetry():
+    from repro_torch.obs import NullDeviceTimer, Telemetry
+
+    return Telemetry(accountant=CollectiveTally(), profiler=NullDeviceTimer())
+
+
+def same_single(torch, kind, got, exp):
+    """A sharded reply's row 0 against a single-source local reply: every
+    field bit for bit, BC delta to TOL, and the agreement flag set."""
+    if not bool(got.agree):
+        return False
+    names = {"bfs": ("ok", "dist", "parent"),
+             "sssp": ("ok", "negcycle", "dist", "parent"),
+             "bc": ("ok", "level", "sigma", "delta")}[kind]
+    for name in names:
+        a, b = getattr(got, name)[0], getattr(exp, name)
+        ok = (torch.allclose(a, b, **TOL) if name == "delta"
+              else a.dtype == b.dtype and torch.equal(a, b))
+        if not ok:
+            return False
+    return True
+
+
+def rung_walls(tel) -> dict:
+    """Median wall (ms) and count of the traced queries per (kind, rung)."""
+    by = {}
+    for r in tel.tracer.records:
+        if r.get("span") == "query" and "error" not in r:
+            by.setdefault((r["kind"], r["mode"]), []).append(r["wall_us"])
+    return {k: (statistics.median(v) / 1e3, len(v)) for k, v in by.items()}
+
+
+def shard_stream(torch, svc, bc_scores, stream, sources):
+    """3a's stream through ``svc``: a cold ``bc_scores()``, then per commit
+    BFS/SSSP/BC from ``sources`` (``ladder_round``), ``bc_scores()`` every
+    RING_DEPTH commits.  Returns the replies, the scores by version, the
+    bc_scores walls (s) and the stream's wall."""
+    replies, scores, score_walls = [], {}, []
+
+    def timed_scores():
+        t = time.perf_counter()
+        s, v = bc_scores()
+        torch.cuda.synchronize()
+        score_walls.append(time.perf_counter() - t)
+        scores[v] = s
+
+    t0 = time.perf_counter()
+    timed_scores()
+    for i, ops in enumerate(stream):
+        replies.extend(ladder_round(svc, ops, sources, i))
+        if (i + 1) % RING_DEPTH == 0:
+            timed_scores()
+    torch.cuda.synchronize()
+    return replies, scores, score_walls, time.perf_counter() - t0
+
+
+def shard_front_end(torch, svc, sources):
+    """The async front end over the sharded service: three clients ask
+    BFS/SSSP/BC from ``sources`` while two more commits land; every reply
+    must equal the port's single-source query on the state at its version
+    and carry the agreement flag.  Returns (replies, serve stats)."""
+    import threading
+
+    from repro_torch.core import PUTE
+    from repro_torch.serve import AsyncGraphService
+
+    asks = [(kind, [src]) for src in sources for kind in KINDS]
+    futs, errs = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for k in range(len(asks)):
+                kind, srcs = asks[(c + k) % len(asks)]
+                f = srv.query_async(kind, srcs)
+                with lock:
+                    futs.append((kind, srcs, f))
+        except Exception as e:  # the check below reports it
+            errs.append(e)
+
+    extra = [[(PUTE, sources[0], sources[2], 1.0)],
+             [(PUTE, sources[1], sources[0], 2.0)]]
+    srv = AsyncGraphService(svc, max_batch=16).start()
+    try:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(3)]
+        for t in threads:
+            t.start()
+        for ops in extra:
+            srv.submit_many(ops)
+            srv.flush()
+        for t in threads:
+            t.join(timeout=SHARD_WAIT)
+            if t.is_alive():
+                raise AssertionError("3g front end: a client hung")
+        if not srv.drain(timeout=SHARD_WAIT):
+            raise AssertionError("3g front end: drain timed out")
+    finally:
+        srv.stop(timeout=SHARD_WAIT)
+    if errs:
+        raise AssertionError(f"3g front end: clients raised {errs[:3]}")
+    torch.cuda.synchronize()
+    checked = 0
+    for kind, srcs, f in futs:
+        reply = f.result(timeout=SHARD_WAIT)
+        state = svc.ring.get(reply.version)
+        if not reply.validated or not same_single(
+                torch, kind, reply.result, fresh(kind)(state, srcs[0])):
+            raise AssertionError(f"3g front end: {kind}{srcs} at version "
+                                 f"{reply.version} ({reply.mode}) != the "
+                                 f"single-source query")
+        checked += 1
+    if svc.ring.pinned_versions():
+        raise AssertionError("3g front end left pins")
+    return checked, srv.stats
+
+
+def sharded_phase(torch, np, timings):
+    """Phase 3g: 3a's state and stream through ShardedGraphService on
+    SHARDS ranks of the one card, once per bc_mode, every reply held
+    against the local GraphService's at the same version; then the front
+    end over the sharded service.  Returns the launches of the three
+    masked kernels in the sharded runs."""
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import count_mm as kc
+    from repro_torch.kernels import minplus_mm as kmp
+    from repro_torch.shard import GraphMesh, ShardedGraphService
+
+    state = load_rmat_graph(N_VERTICES, N_EDGES, seed=SEED, device=DEV)
+    rng = np.random.default_rng(SEED)
+    stream, hot_base = commit_stream(np, rng, N_VERTICES)
+    sources = query_sources(torch, state, hot_base)
+    mesh = GraphMesh([f"{DEV}:0" if DEV == "cuda" else DEV] * SHARDS)
+    log(f"  mesh {mesh}; sources {sources}")
+
+    # -- the local service on the same stream: the answers to hold 3g's
+    # against, and 3a's walls per kind and rung (its bc_scores launch
+    # count_mm_masked, so it runs before the counts are reset)
+    tel = shard_telemetry()
+    local = GraphService(state, ring_depth=RING_DEPTH,
+                         batch_size=BATCH_SIZE, telemetry=tel)
+    want, want_scores, score_walls, wall = shard_stream(
+        torch, local, lambda: local.bc_scores(src_chunk=SRC_CHUNK), stream,
+        sources)
+    walls = {"local": rung_walls(tel)}
+    scores_walls = {"local": score_walls}
+    timings["3g local stream"] = wall
+    log(f"  local GraphService: {len(want)} replies in {wall:.2f} s "
+        f"({local.stats.as_dict()})")
+    del local
+    torch.cuda.empty_cache()
+
+    kb.reset_launches()
+    kmp.reset_launches()
+    kc.reset_launches()
+    peaks, coll, svc = {}, {}, None
+    for bc_mode in ("gather", "ring"):
+        svc = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tel = shard_telemetry()
+        svc = ShardedGraphService(
+            state, mesh, use_kernel=True, src_chunk=SRC_CHUNK,
+            bc_mode=bc_mode, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE,
+            telemetry=tel)
+        got, got_scores, score_walls, wall = shard_stream(
+            torch, svc, svc.bc_scores, stream, sources)
+        peaks[bc_mode] = torch.cuda.max_memory_allocated()
+        timings[f"3g sharded stream ({bc_mode})"] = wall
+        walls[bc_mode] = rung_walls(tel)
+        scores_walls[bc_mode] = score_walls
+        for (kind, src, mode, a), (_, _, _, b) in zip(got, want):
+            if a.version != b.version or not same_single(torch, kind,
+                                                         a.result, b.result):
+                raise AssertionError(
+                    f"3g {bc_mode}: {kind}({src}) {mode} at version "
+                    f"{a.version} ({a.mode}) != the local service's")
+        for v, s in got_scores.items():
+            if not torch.allclose(s, want_scores[v], equal_nan=True, **TOL):
+                err = float((s - want_scores[v]).nan_to_num().abs().max())
+                raise AssertionError(f"3g {bc_mode}: bc_scores at version "
+                                     f"{v} off by {err}")
+        st = svc.stats
+        if st.delta < 1 or st.full < 1:
+            raise AssertionError(f"3g {bc_mode}: a rung never ran ({st})")
+        per = {}
+        for r in tel.tracer.records:
+            if r.get("span") == "query" and r.get("coll_bytes"):
+                per.setdefault(r["kind"], []).append(r["coll_bytes"])
+        coll[bc_mode] = {k: statistics.mean(v) for k, v in per.items()}
+        log(f"  {bc_mode}: {len(got)} replies == the local service's "
+            f"(bc_scores at versions {sorted(got_scores)} to 1e-5) in "
+            f"{wall:.2f} s; {st.as_dict()}; peak "
+            f"{peaks[bc_mode] / 2**30:.2f} GiB")
+    checked, serve = shard_front_end(torch, svc, sources)
+    launches = {"bool_mm_masked": kb.LAUNCHES["bool_mm_masked"],
+                "minplus_mm_masked": kmp.LAUNCHES["minplus_mm_masked"],
+                "count_mm_masked": kc.LAUNCHES["count_mm_masked"]}
+    log(f"  front end over the sharded service: {checked} replies == the "
+        f"single-source queries at their versions ({serve})")
+    log(f"  3g kernel launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"phase 3g never launched {name}")
+    log("  bc_scores s, cold / after 8 / after 16 commits: " + "; ".join(
+        f"{m} " + " / ".join(f"{t:.3f}" for t in scores_walls[m])
+        for m in ("local", "gather", "ring")))
+    log("  ms per query, median (count), kind/rung (bc includes bc_scores; "
+        "unchanged: a cn query's second collect): local | gather | ring")
+    for key in sorted(set().union(*walls.values())):
+        cells = [f"{walls[m][key][0]:8.2f} ({walls[m][key][1]:3d})"
+                 if key in walls[m] else "       -      "
+                 for m in ("local", "gather", "ring")]
+        log(f"    {key[0]:4s} {key[1]:9s} " + " | ".join(cells))
+    for m in ("gather", "ring"):
+        log(f"  {m}: collective bytes per traced query, mean by kind "
+            + ", ".join(f"{k} {v:.4g}" for k, v in sorted(coll[m].items())))
+    log(f"  peak device memory: gather {peaks['gather'] / 2**30:.2f} GiB, "
+        f"ring {peaks['ring'] / 2**30:.2f} GiB")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2285,9 +2683,14 @@ def main() -> int:
     sweep_traversal_kernels(torch, np, errs)
     state = load_rmat_graph(N_VERTICES, N_EDGES, seed=SEED, device=DEV)
     view = build_tile_view(state)
-    rows = main_shape_kernels(torch, state, view, errs)
+    a, occ, x, g = capture_main_products(torch, state, view)
+    rows = main_shape_kernels(torch, view, a, occ, x, errs)
+    del a
     torch.cuda.empty_cache()
     rows += main_shape_traversal(torch, state, view, errs)
+    torch.cuda.empty_cache()
+    band_shape_kernels(torch, state, view, x, g, rows, errs)
+    del x, g
     torch.cuda.empty_cache()
     sweep_flash(torch, errs)
     timings["kernels"] = time.perf_counter() - t0
@@ -2334,6 +2737,14 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_phase(torch, np, timings)
     timings["serve phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log(f"== phase 3g: sharded tile-grid engine (ShardedGraphService, "
+        f"{SHARDS} ranks on one card)")
+    t0 = time.perf_counter()
+    for name, n in sharded_phase(torch, np, timings).items():
+        launches[name] += n
+    timings["sharded phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

@@ -19,7 +19,8 @@ other wrote.
 
 Leaves are tensors (or numpy arrays); a restore builds tensors on the
 device the caller names, ``"cuda"`` by default.  The reference's
-``mesh=``/``specs=`` resharding waits for the port's sharded service.
+``mesh=``/``specs=`` resharding onto a graph mesh is not ported yet
+(ROADMAP.md, queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -163,14 +164,14 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     ``tree_like`` supplies the structure and the dtypes (tensors, ``meta``
     tensors as :func:`like_from_manifest` builds, or numpy arrays); every
     leaf comes back as a tensor on ``device`` (default ``"cuda"``, which
-    raises without CUDA).  ``mesh``/``specs`` wait for the sharded port.
+    raises without CUDA).  ``mesh``/``specs`` are not ported yet.
     """
     from repro_torch.core.graph_state import resolve_device
 
     if mesh is not None or specs is not None:
         raise NotImplementedError(
-            "restore_checkpoint(mesh=, specs=) waits for the port's "
-            "sharded service")
+            "restore_checkpoint(mesh=, specs=) is not ported yet "
+            "(ROADMAP.md, queue 1, item 2)")
     dev = resolve_device(device)
     for _ in range(max_retries):
         m1 = read_manifest(ckpt_dir, step)

@@ -155,6 +155,14 @@ def live_edge_mask(state: GraphState) -> torch.Tensor:
     return (state.esrc != NOKEY) & (state.ew < INF) & src_ok & dst_ok
 
 
+def num_vertices(state: GraphState) -> torch.Tensor:
+    return state.alive.sum(dtype=torch.int32)
+
+
+def num_edges(state: GraphState) -> torch.Tensor:
+    return live_edge_mask(state).sum(dtype=torch.int32)
+
+
 def used_slots(state: GraphState) -> torch.Tensor:
     """Occupied slots (live + tombstones)."""
     return (state.esrc != NOKEY).sum(dtype=torch.int32)

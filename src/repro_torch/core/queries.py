@@ -510,17 +510,30 @@ def sssp_tree_parents(state: GraphState, dist: torch.Tensor,
     return _tree_parents(state, tree, e, srcs)
 
 
-def bc(state: GraphState, v, sources=None, *, use_kernel=None,
-       tile_view=None, src_chunk: int | None = None) -> torch.Tensor:
+def bc_map(state: GraphState, v, sources) -> torch.Tensor:
+    """Per-source Brandes baseline: ``bc_dependencies`` of each source in
+    turn, summed (the reference's ``lax.map``).  Kept as the oracle and
+    baseline of ``bc``'s batched path."""
+    vc = int(torch.as_tensor(v).clamp(0, state.vcap - 1))
+    total = torch.zeros((), dtype=torch.float32, device=state.device)
+    for s in torch.as_tensor(sources, dtype=torch.int32).reshape(-1).tolist():
+        r = bc_dependencies(state, s)
+        total = total + torch.where(r.ok, r.delta[vc], 0.0)
+    return total
+
+
+def bc(state: GraphState, v, sources=None, *, method: str = "batched",
+       use_kernel=None, tile_view=None,
+       src_chunk: int | None = None) -> torch.Tensor:
     """Betweenness centrality of ``v``: sum_s delta(s|v).
 
     ``sources`` defaults to every vertex slot (dead sources contribute 0).
-    The sources run at once as semiring products (``bc_batched_dense``;
-    the reference's per-source ``method="map"`` baseline is not ported).
-    ``tile_view`` supplies the dense weights plus the tile-occupancy mask so
-    the products skip empty tiles (the masked kernel); without it the
-    products are dense (the dense kernel).  ``src_chunk`` bounds the
-    S x V scratch.
+    The default ``method="batched"`` runs the sources at once as semiring
+    products (``bc_batched_dense``); ``method="map"`` is the per-source
+    baseline ``bc_map``.  ``tile_view`` supplies the dense weights plus the
+    tile-occupancy mask so the products skip empty tiles (the masked
+    kernel); without it the products are dense (the dense kernel).
+    ``src_chunk`` bounds the S x V scratch.
     """
     dev = state.device
     v = torch.as_tensor(v, dtype=torch.int32, device=dev)
@@ -529,6 +542,10 @@ def bc(state: GraphState, v, sources=None, *, use_kernel=None,
     sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
     vc = v.clamp(0, state.vcap - 1).long()
     ok = state.alive[vc]
+    if method == "map":
+        return torch.where(ok, bc_map(state, v, sources), math.nan)
+    if method != "batched":
+        raise ValueError(f"unknown bc method {method!r}")
     tile = 128
     if tile_view is not None:
         adj_mask, _, alive = dense_views_from_tiles(state, tile_view)
@@ -638,7 +655,8 @@ def sssp_batched_dense(w_dense: torch.Tensor, srcs: torch.Tensor,
 # ------------------------- batched Brandes (BC) ---------------------------
 
 def bc_sweep_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
-                 V: int, prior_level=None, prior_sigma=None, cut=None):
+                 V: int, prior_level=None, prior_sigma=None, cut=None,
+                 sync_any=None, sync_max=None):
     """One forward+backward Brandes sweep over *abstract* semiring products.
 
     The sweep only calls ``fwd_mm(x)`` (``x @ A`` for the frontier-masked
@@ -654,7 +672,19 @@ def bc_sweep_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
     its whole tree.  Each row's state at its resume pass equals the cold
     run's, so levels/sigma -- and the full backward sweep -- reproduce the
     cold call bit for bit.
+
+    ``sync_any`` / ``sync_max`` (default: identity) merge the host-side
+    loop controls -- the forward loop's "more levels" flag and the deepest
+    level -- across whatever the products span.  A provider whose products
+    contain collectives (the sharded ring, ``repro_torch.shard.queries``)
+    must run its level loops in lock-step on every rank, so it passes
+    reductions over the ranks here; a rank's extra iterations are exact
+    no-ops (empty frontiers add zeros, flows of absent levels are zero).
     """
+    if sync_any is None:
+        sync_any = lambda p: p  # noqa: E731
+    if sync_max is None:
+        sync_max = lambda x: x  # noqa: E731
     S = srcs.shape[0]
     dev = alive.device
     srcc = srcs.clamp(0, V - 1).long()
@@ -682,7 +712,7 @@ def bc_sweep_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
     # Forward phase: one counting product per level does both jobs --
     # frontier sigma is >= 1 on every frontier vertex and counts are exact
     # integers, so adds > 0 is precisely the frontier hit.
-    while bool(front.any()) and bool((lvl < V).any()):
+    while sync_any(bool(front.any()) and bool((lvl < V).any())):
         adds = fwd_mm(torch.where(front, sigma, 0.0))
         newly = (adds > 0) & (level < 0)
         sigma = torch.where(newly, adds, sigma)
@@ -693,7 +723,7 @@ def bc_sweep_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
     # below across edges is a counting product against A^T.
     sig_safe = torch.where(sigma > 0, sigma, 1.0)
     delta = torch.zeros_like(sigma)
-    for l in range(int(level.max()) - 1, -1, -1):
+    for l in range(sync_max(int(level.max())) - 1, -1, -1):
         g = torch.where(level == l + 1, (1.0 + delta) / sig_safe, 0.0)
         pulled = bwd_mm(g)
         delta = delta + torch.where(level == l, sigma * pulled, 0.0)
@@ -707,7 +737,8 @@ def bc_batched_dense(adj_mask: torch.Tensor, srcs: torch.Tensor,
                      src_chunk: int | None = None,
                      prior_level: torch.Tensor | None = None,
                      prior_sigma: torch.Tensor | None = None,
-                     cut: torch.Tensor | None = None):
+                     cut: torch.Tensor | None = None,
+                     sync_any=None, sync_max=None):
     """Multi-source Brandes as level-synchronous counting products.
 
     Forward: per level one ``count_mm`` of the frontier sigma against the
@@ -723,7 +754,8 @@ def bc_batched_dense(adj_mask: torch.Tensor, srcs: torch.Tensor,
     ``use_kernel`` as in ``semiring.count_mm``.  ``src_chunk``: process
     the source axis in chunks (the tail may be ragged); per-source results
     do not depend on the chunking.  ``prior_level``/``prior_sigma``/``cut``
-    select the level-cut warm start (see ``bc_sweep_ops``).
+    select the level-cut warm start, ``sync_any``/``sync_max`` the
+    lock-step hooks (see ``bc_sweep_ops``).
     """
     a = (adj_mask & alive[:, None] & alive[None, :]).float()
     at = a.t().contiguous()  # transposed once per call, not per level
@@ -735,17 +767,20 @@ def bc_batched_dense(adj_mask: torch.Tensor, srcs: torch.Tensor,
                                        amask=amask_t, tile=tile)
     return bc_batched_ops(fwd_mm, bwd_mm, srcs, alive, a.shape[0],
                           src_chunk=src_chunk, prior_level=prior_level,
-                          prior_sigma=prior_sigma, cut=cut)
+                          prior_sigma=prior_sigma, cut=cut,
+                          sync_any=sync_any, sync_max=sync_max)
 
 
 def bc_batched_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
                    V: int, *, src_chunk: int | None = None,
                    prior_level: torch.Tensor | None = None,
                    prior_sigma: torch.Tensor | None = None,
-                   cut: torch.Tensor | None = None):
+                   cut: torch.Tensor | None = None,
+                   sync_any=None, sync_max=None):
     """The chunked batched-Brandes loop over abstract semiring products:
     one full forward+backward ``bc_sweep_ops`` per source chunk, each
-    chunk's results written into preallocated ``[S, V]`` outputs."""
+    chunk's results written into preallocated ``[S, V]`` outputs.
+    ``sync_any``/``sync_max`` reach every chunk's sweep."""
     S = srcs.shape[0]
     warm = prior_level is not None
     if warm:
@@ -756,7 +791,8 @@ def bc_batched_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
                               device=alive.device).expand(S)
     if src_chunk is None or src_chunk >= S:
         return bc_sweep_ops(fwd_mm, bwd_mm, srcs, alive, V,
-                            prior_level, prior_sigma, cut)
+                            prior_level, prior_sigma, cut,
+                            sync_any, sync_max)
     if src_chunk < 1:
         raise ValueError(f"src_chunk must be >= 1, got {src_chunk}")
     dev = alive.device
@@ -769,7 +805,8 @@ def bc_batched_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
         out = bc_sweep_ops(fwd_mm, bwd_mm, srcs[part], alive, V,
                            prior_level[part] if warm else None,
                            prior_sigma[part] if warm else None,
-                           cut[part] if warm else None)
+                           cut[part] if warm else None,
+                           sync_any, sync_max)
         for dst, src in zip((delta, sigma, level, ok), out):
             dst[part] = src
     return delta, sigma, level, ok

@@ -48,6 +48,11 @@ def _padded_dim(vcap: int, tile: int) -> int:
     return -(-vcap // tile) * tile
 
 
+def active_tile_mask(view: TileView) -> torch.Tensor:
+    """bool[nt, nt]: tiles holding at least one live edge."""
+    return view.occ > 0
+
+
 def occupancy_stats(view: TileView) -> dict:
     """Host-side summary: how much of the tile grid the kernels can skip."""
     occ = view.occ.cpu()

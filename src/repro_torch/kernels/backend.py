@@ -8,7 +8,13 @@ kernel's plain PyTorch version.  Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+
+#: Serialises the launch counts: the sharded engine launches from one
+#: thread per rank, and ``+= 1`` on a dict entry is not atomic.
+_COUNT_LOCK = threading.Lock()
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -73,6 +79,12 @@ def aligned_f32(x: torch.Tensor) -> torch.Tensor:
     and copy 16-byte chunks)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """Add one to a kernel module's ``LAUNCHES[name]`` (any thread)."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def launch(name: str, fn, *args) -> None:

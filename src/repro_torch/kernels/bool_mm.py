@@ -31,8 +31,8 @@ import ctypes
 import torch
 
 from . import build
-from .backend import aligned_f32, check_masks, check_operands, launch, \
-    masked_plain, on_cuda
+from .backend import aligned_f32, check_masks, check_operands, \
+    count_launch, launch, masked_plain, on_cuda
 from .ref import bool_mm_ref  # the dense kernel's plain version
 
 # The CUDA kernel's block shape (csrc/bool_mm.cu; checked against the
@@ -157,7 +157,7 @@ def bool_mm(f: torch.Tensor, a: torch.Tensor,
     f, scratch, packed, out = _launch_args(f, a, packed, m, kdim, n)
     launch("bool_mm", _lib().bool_mm, f.data_ptr(), scratch.data_ptr(),
            packed.data_ptr(), out.data_ptr(), m, kdim, n)
-    LAUNCHES["bool_mm"] += 1
+    count_launch(LAUNCHES, "bool_mm")
     return out
 
 
@@ -182,5 +182,5 @@ def bool_mm_masked(f: torch.Tensor, a: torch.Tensor, fmask: torch.Tensor,
     launch("bool_mm_masked", _lib().bool_mm_masked, f.data_ptr(),
            scratch.data_ptr(), packed.data_ptr(), out.data_ptr(),
            fmask.data_ptr(), amask.data_ptr(), m, kdim, n)
-    LAUNCHES["bool_mm_masked"] += 1
+    count_launch(LAUNCHES, "bool_mm_masked")
     return out

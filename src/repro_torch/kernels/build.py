@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict = {}
 _bound: dict = {}
+#: One build or bind at a time: the sharded engine's rank threads may all
+#: reach a kernel's first launch at once.
+_LOCK = threading.RLock()
 build_logs: dict = {}  # {name: nvcc output} for the sources built here
 
 _I = ctypes.c_int
@@ -86,25 +90,27 @@ def _finish(name: str, job) -> None:
 
 def load_all(names) -> None:
     """Build every named source that is not cached, all ``nvcc``s at once."""
-    jobs = {name: _start(name) for name in names if name not in _loaded}
-    try:
-        for name, job in jobs.items():
-            _finish(name, job)
-    finally:
-        for job in jobs.values():
-            if job is not None and job[0].poll() is None:
-                job[0].kill()
-                job[0].wait()
+    with _LOCK:
+        jobs = {name: _start(name) for name in names if name not in _loaded}
+        try:
+            for name, job in jobs.items():
+                _finish(name, job)
+        finally:
+            for job in jobs.values():
+                if job is not None and job[0].poll() is None:
+                    job[0].kill()
+                    job[0].wait()
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        load_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            load_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib
 
 
 def bind(name: str, blocks, argtypes) -> ctypes.CDLL:
@@ -113,7 +119,12 @@ def bind(name: str, blocks, argtypes) -> ctypes.CDLL:
     semiring products (BM, BN, BK)).  ``argtypes`` maps each entry point
     to its argument types.  Every entry point returns a ``cudaError_t``."""
     lib = _bound.get(name)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _bound.get(name)
+        if lib is not None:
+            return lib
         lib = load(name)
         shape_fn = getattr(lib, f"{name}_block_shape")
         shape_fn.argtypes = [ctypes.POINTER(_I)]
@@ -128,4 +139,4 @@ def bind(name: str, blocks, argtypes) -> ctypes.CDLL:
             fn.argtypes = types
             fn.restype = _I
         _bound[name] = lib
-    return lib
+        return lib

@@ -24,8 +24,8 @@ import ctypes
 import torch
 
 from . import build
-from .backend import check_masks, check_operands, launch, masked_plain, \
-    on_cuda
+from .backend import check_masks, check_operands, count_launch, \
+    launch, masked_plain, on_cuda
 from .ref import count_mm_ref  # the dense kernel's plain version
 
 # The CUDA kernel's block shape (csrc/count_mm.cu; checked against the
@@ -144,7 +144,7 @@ def count_mm(s: torch.Tensor, a: torch.Tensor,
     launch("count_mm", _lib().count_mm, s.data_ptr(), scratch[0].data_ptr(),
            scratch[1].data_ptr(), planes.data_ptr(), planes.shape[0],
            out.data_ptr(), m, kdim, n)
-    LAUNCHES["count_mm"] += 1
+    count_launch(LAUNCHES, "count_mm")
     return out
 
 
@@ -171,5 +171,5 @@ def count_mm_masked(s: torch.Tensor, a: torch.Tensor, smask: torch.Tensor,
            scratch[0].data_ptr(), scratch[1].data_ptr(), planes.data_ptr(),
            planes.shape[0], out.data_ptr(), smask.data_ptr(),
            amask.data_ptr(), m, kdim, n)
-    LAUNCHES["count_mm_masked"] += 1
+    count_launch(LAUNCHES, "count_mm_masked")
     return out

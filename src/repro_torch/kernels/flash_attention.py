@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from . import build
-from .backend import launch, on_cuda
+from .backend import count_launch, launch, on_cuda
 from .ref import flash_attention_ref, flash_offset
 
 # The f32 body's tiling (csrc/flash_attention.cu; checked against the
@@ -132,5 +132,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, hq,
            hkv, sq, skv, d, *strides(q), *strides(k), *strides(v),
            flash_offset(sq, skv, causal), window or 0, scale)
-    LAUNCHES["flash_attention"] += 1
+    count_launch(LAUNCHES, "flash_attention")
     return out

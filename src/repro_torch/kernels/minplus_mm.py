@@ -28,8 +28,8 @@ import math
 import torch
 
 from . import build
-from .backend import aligned_f32, check_masks, check_operands, launch, \
-    masked_plain, on_cuda
+from .backend import aligned_f32, check_masks, check_operands, \
+    count_launch, launch, masked_plain, on_cuda
 
 # The CUDA kernel's block shape (csrc/minplus_mm.cu; checked against the
 # library's own minplus_mm_block_shape when it loads): the row granule,
@@ -110,7 +110,7 @@ def minplus_mm(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     scratch = _scratch(lib, m, kdim, n, d.device)
     launch("minplus_mm", lib.minplus_mm, d.data_ptr(), w.data_ptr(),
            out.data_ptr(), scratch.data_ptr(), m, kdim, n)
-    LAUNCHES["minplus_mm"] += 1
+    count_launch(LAUNCHES, "minplus_mm")
     return out
 
 
@@ -140,5 +140,5 @@ def minplus_mm_masked(d: torch.Tensor, w: torch.Tensor, dmask: torch.Tensor,
     launch("minplus_mm_masked", lib.minplus_mm_masked, d.data_ptr(),
            w.data_ptr(), out.data_ptr(), scratch.data_ptr(), dmask.data_ptr(),
            wmask.data_ptr(), m, kdim, n)
-    LAUNCHES["minplus_mm_masked"] += 1
+    count_launch(LAUNCHES, "minplus_mm_masked")
     return out

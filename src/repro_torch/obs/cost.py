@@ -24,9 +24,10 @@ result is the reference's cost dict, with the reference's keys:
     and compares with no flop formula, and the hand-written kernels are
     bound through ctypes, out of any torch-level counter's sight: no op of
     the local service has flops to count.
-  * ``collective_bytes`` is 0 and ``collectives`` ``{}``: the local
-    service runs no collective.  Parsing collective bytes waits for the
-    sharded service.
+  * ``collective_bytes`` is 0 and ``collectives`` ``{}`` here: the local
+    service runs no collective.  The sharded service's queries overlay
+    the bytes their collective group counted during the call
+    (``repro_torch.shard.queries._account``).
 
 Measuring resets the device's process-wide peak-memory statistics: a
 reader of ``torch.cuda.max_memory_allocated`` in the same process loses

@@ -36,6 +36,13 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
   * ``static sssp query`` -- the same for SSSP: ``dense_views``, then
     ``sssp_batched_dense`` from that source, one ``minplus_mm`` of its
     distance row (padded to the row granule) per relax pass;
+  * ``sharded ladder round (<bc_mode>)`` / ``sharded bc_scores
+    (<bc_mode>)`` -- ``chip_smoke.py`` 3g's service
+    (``ShardedGraphService`` on ``SHARDS`` ranks of the card) after the same
+    cold ``bc_scores`` and ``RING_DEPTH`` batches: one ladder round, and the
+    ``bc_scores`` after it (its rung in the printed tallies), per
+    ``bc_mode``.  The ranks' streams
+    overlap on the card, so the summed device time can exceed the wall;
   * ``<arch> prefill`` / ``<arch> decode x N`` -- for each model of
     ``chip_smoke.LM_ARCHS`` at its serving shape (``LM_BATCH`` prompts of
     ``LM_PROMPT`` tokens, seed 0 weights): one prefill after an unprofiled
@@ -172,6 +179,8 @@ def main() -> int:
     for query in ("bfs", "sssp"):
         out.append(static_window(torch, np, smoke, query))
         torch.cuda.empty_cache()
+    out += sharded_windows(torch, np, smoke)
+    torch.cuda.empty_cache()
     out += lm_windows(torch, smoke)
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
@@ -249,6 +258,39 @@ def serve_windows(torch, np, smoke):
                   f"{row['device_ms_per_query']:.3f} ms device, "
                   f"{row['wall_ms'] / n:.3f} ms wall", flush=True)
             out.append(row)
+    return out
+
+
+def sharded_windows(torch, np, smoke):
+    """Phase 3g's sharded service, per ``bc_mode``: one ladder round and
+    one ``bc_scores`` after the smoke's first ``RING_DEPTH`` batches."""
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.shard import GraphMesh, ShardedGraphService
+
+    state = load_rmat_graph(smoke.N_VERTICES, smoke.N_EDGES, seed=smoke.SEED,
+                            device="cuda")
+    rng = np.random.default_rng(smoke.SEED)
+    stream, hot_base = smoke.commit_stream(np, rng, smoke.N_VERTICES)
+    sources = smoke.query_sources(torch, state, hot_base)
+    mesh = GraphMesh(["cuda:0"] * smoke.SHARDS)
+    out = []
+    for bc_mode in ("gather", "ring"):
+        svc = ShardedGraphService(state, mesh, use_kernel=True,
+                                  src_chunk=smoke.SRC_CHUNK, bc_mode=bc_mode,
+                                  ring_depth=smoke.RING_DEPTH,
+                                  batch_size=smoke.BATCH_SIZE)
+        svc.bc_scores()
+        for i in range(smoke.RING_DEPTH):
+            smoke.ladder_round(svc, stream[i], sources, i)
+        nxt = smoke.RING_DEPTH
+        out.append(profile_window(
+            torch, f"sharded ladder round ({bc_mode})",
+            lambda: smoke.ladder_round(svc, stream[nxt], sources, nxt)))
+        out.append(profile_window(torch, f"sharded bc_scores ({bc_mode})",
+                                  svc.bc_scores))
+        print(f"  ladder {svc.stats.as_dict()}", flush=True)
+        del svc
+        torch.cuda.empty_cache()
     return out
 
 
