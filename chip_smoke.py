@@ -47,7 +47,12 @@ exit code:
                  4096 rows; BFS and SSSP 1 x 4096 x 16384, the ring's
                  counting products 2048 x 4096 x 16384 and, on the
                  transposed band, 2048 x 16384 x 4096), through the raw
-                 entry points and through the ops path 3g runs;
+                 entry points and through the ops path 3g runs.
+                 flash_attention is also held and timed (beside SDPA) at
+                 phase 3h's four prefill shapes (FAMILY_FLASH: Zamba2's
+                 shared block, Whisper's encoder, decoder self- and
+                 cross-attention), its inputs laid out as the models hand
+                 them over;
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -151,12 +156,33 @@ exit code:
                  Prints per kind and rung walls against the local
                  service's, bc_scores walls, collective bytes per query
                  and the peak memory of each mode;
+  3h. LM families -- the SSM, hybrid and encoder-decoder models
+                 (FAMILY_ARCHS: mamba2_780m, zamba2_12b, whisper_large_v3)
+                 through the serve entry point at full width and depth,
+                 random weights from seed 0: batch 4, 32 generated tokens,
+                 prompt 2048 (Whisper: 224 decoder tokens over 1500
+                 frames drawn from seed 2).  The prefills must launch
+                 flash_attention 0 / 6 / 96 times, at exactly the shapes
+                 FAMILY_FLASH lists, each first call held against the
+                 plain version on its own inputs; tokens in range, logits
+                 finite.  Then two forms of the same function: the flash
+                 prefill's logits against the "xla" path's (Zamba2,
+                 Whisper), and the last decode step's against a fresh
+                 prefill of prompt + generated tokens (for Mamba2 the
+                 one-step recurrence against the chunked SSD), measured in
+                 the served bf16 at full depth, held to LM_REL_TOL on the
+                 same weights in float32 at full depth and in bf16 on the
+                 first FAMILY_CUT layers (the random-init SSM stacks carry
+                 one layer's bf16 rounding into every later one: their
+                 full-depth bf16 forms drift apart beyond LM_REL_TOL);
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
                  launches are those of 3a, 3e and 3g; bool_mm_masked's and
-                 minplus_mm_masked's those of 3b, 3c and 3g.  The masked
-                 rows carry their band-shape timings under "band" (and
-                 count_mm_masked's backward under "band_t").
+                 minplus_mm_masked's those of 3b, 3c and 3g;
+                 flash_attention's those of 3d and 3h.  The masked rows
+                 carry their band-shape timings under "band" (and
+                 count_mm_masked's backward under "band_t"), the
+                 flash_attention row 3h's four shapes under "encdec".
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -227,7 +253,7 @@ FLASH_SWEEP = [(1, 4, 4, 32, 32, 16, True, None),
 # Keys a kernel row may carry beyond the required ones: the boolean rows'
 # FP32 yardstick, the static mode's shape and the packs' own times.
 EXTRA_KEYS = ("matmul_fp32_ms", "static", "pack_right_ms", "pack_left_ms",
-              "pack_left_static_ms", "band", "band_t")
+              "pack_left_static_ms", "band", "band_t", "encdec")
 LM_ARCHS = ("mistral_nemo_12b", "granite_moe_1b")
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # Two bf16 forward passes that differ only in where they round (the flash
@@ -237,6 +263,30 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # roundings per layer) x 2^-9; the bound allows 5e-2 (logits of two
 # different prompts differ by about 1.4).
 LM_REL_TOL = 5e-2
+# Phase 3h: the SSM, hybrid and audio encoder-decoder families, served at
+# LM_BATCH x LM_PROMPT and LM_GEN tokens; Whisper's decoder prompt is its
+# prompt-conditioning limit, 224 tokens, so prompt + LM_GEN stays inside its
+# 448-token window, and its encoder reads the config's 1500 frames.
+FAMILY_ARCHS = ("mamba2_780m", "zamba2_12b", "whisper_large_v3")
+WHISPER_PROMPT = 224
+# flash_attention on 3h's prefills (batch LM_BATCH, bf16, head_dim 64): arch,
+# caller, heads, Sq, Skv, rows of the cache its K/V are a prefix of (None:
+# no cache), causal, launches per prefill.  Mamba2 launches none.
+FAMILY_FLASH = (
+    ("zamba2_12b", "zamba2 shared block", 32, LM_PROMPT, LM_PROMPT,
+     LM_PROMPT + LM_GEN, True, 6),
+    ("whisper_large_v3", "whisper encoder", 20, 1500, 1500, None, False, 32),
+    ("whisper_large_v3", "whisper decoder self", 20, WHISPER_PROMPT,
+     WHISPER_PROMPT, WHISPER_PROMPT + LM_GEN, True, 32),
+    ("whisper_large_v3", "whisper cross", 20, WHISPER_PROMPT, 1500, 1500,
+     False, 32),
+)
+FAMILY_HEAD_DIM = 64
+# Depth of 3h's bf16 form checks: Mamba2 layers, hybrid layers (one
+# super-block of six and its shared-block invocation), encoder and decoder
+# layers of Whisper (all of them: the transformer's bf16 forms agree at full
+# depth).
+FAMILY_CUT = {"mamba2_780m": 4, "zamba2_12b": 6, "whisper_large_v3": 32}
 
 
 def log(*args):
@@ -326,6 +376,7 @@ class ErrLog:
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {what}")
+        return err
 
 
 def sweep_kernels(torch, np, errs):
@@ -1017,6 +1068,61 @@ def sweep_flash(torch, errs):
                    tol)
 
 
+def family_flash_inputs(torch, g, hq, sq, skv, rows, causal):
+    """Random bf16 q, k, v of one FAMILY_FLASH shape, laid out as the model
+    hands them to the kernel: a rotated q or k is contiguous, an unrotated
+    one (cross-attention's q, a projected v) a transposed [B, S, H, D]
+    view, and K/V held in a cache the prefix of its first ``rows`` rows."""
+    shape = (LM_BATCH, hq, sq, FAMILY_HEAD_DIM)
+
+    def draw(*dims):
+        return torch.randn(dims, generator=g, device=DEV).to(torch.bfloat16)
+
+    cross = not causal and rows is not None
+    q = (draw(LM_BATCH, sq, hq, FAMILY_HEAD_DIM).transpose(1, 2) if cross
+         else draw(*shape))
+    if rows is None:   # the encoder: k rotated, v as projected
+        k = draw(LM_BATCH, hq, skv, FAMILY_HEAD_DIM)
+        v = draw(LM_BATCH, skv, hq, FAMILY_HEAD_DIM).transpose(1, 2)
+    else:
+        k = draw(LM_BATCH, hq, rows, FAMILY_HEAD_DIM)[:, :, :skv]
+        v = draw(LM_BATCH, hq, rows, FAMILY_HEAD_DIM)[:, :, :skv]
+    return q, k, v
+
+
+def family_flash_shapes(torch, errs):
+    """flash_attention at phase 3h's four prefill shapes (FAMILY_FLASH): each
+    held against its plain version at the bf16 tolerance, then timed beside
+    SDPA with its bound.  Returns the sub-rows kept under the kernel row's
+    "encdec" key."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    g = torch.Generator(device=DEV).manual_seed(3)
+    out = []
+    for arch, caller, hq, sq, skv, rows, causal, n in FAMILY_FLASH:
+        q, k, v = family_flash_inputs(torch, g, hq, sq, skv, rows, causal)
+        what = (f"{caller} {LM_BATCH}x{hq}x{sq}x{skv}x{FAMILY_HEAD_DIM} "
+                f"{'causal' if causal else 'full'}")
+        err = errs.check(torch, "flash_attention",
+                         kf.flash_attention(q, k, v, causal=causal),
+                         flash_attention_ref(q, k, v, causal=causal), False,
+                         what, FLASH_TOL["bfloat16"])
+        row = kernel_row(
+            torch, "flash_attention",
+            lambda: kf.flash_attention(q, k, v, causal=causal),
+            lambda: flash_attention_ref(q, k, v, causal=causal),
+            attention_work(q, k, causal, None), BF16_PEAK,
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal))
+        out.append(band_row(row, dict(
+            arch=arch, caller=caller, q=list(q.shape), kv=list(k.shape),
+            causal=causal, launches_per_prefill=n, max_abs_err=err)))
+        del q, k, v
+    return out
+
+
 # --------------------------------- phase 3 ---------------------------------
 
 def commit_stream(np, rng, n):
@@ -1346,20 +1452,24 @@ def workload_phase(torch, np, timings):
 
 class FlashCapture:
     """Within ``with``: records clones of the inputs of the first
-    ``ops.flash_attention`` call (a prefill's layer 0) and passes every
-    call on unchanged."""
+    ``ops.flash_attention`` call (a prefill's layer 0) and of the first call
+    of every distinct (q shape, k shape, arguments) in ``calls``, and
+    passes every call on unchanged."""
 
     def __init__(self):
         from repro_torch.kernels import ops as kops
 
-        self.kops, self.first = kops, None
+        self.kops, self.first, self.calls = kops, None, {}
 
     def __enter__(self):
         self.orig = self.kops.flash_attention
 
         def wrapped(q, k, v, **kw):
-            if self.first is None:
-                self.first = (q.clone(), k.clone(), v.clone(), kw)
+            key = (tuple(q.shape), tuple(k.shape), tuple(sorted(kw.items())))
+            if key not in self.calls:
+                self.calls[key] = (q.clone(), k.clone(), v.clone(), kw)
+                if self.first is None:
+                    self.first = self.calls[key]
             return self.orig(q, k, v, **kw)
 
         self.kops.flash_attention = wrapped
@@ -1512,6 +1622,215 @@ def lm_phase(torch, errs, timings):
         del r, cache, f_logits, dec, model, xla
         torch.cuda.empty_cache()
     return launches, row
+
+
+# --------------------------------- phase 3h --------------------------------
+
+def param_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_count(v) for v in tree)
+    return tree.numel()
+
+
+def to_float32(torch, tree):
+    """A copy of a parameter tree with its bf16 leaves in float32."""
+    if isinstance(tree, dict):
+        return {k: to_float32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_float32(torch, v) for v in tree]
+    return tree.float() if tree.dtype == torch.bfloat16 else tree
+
+
+def cut_depth(cfg, params, n):
+    """The model's first ``n`` layers: Mamba2 layers; the hybrid's first
+    n // attn_every super-blocks (each with its shared-block invocation,
+    no tail); n encoder and n decoder layers."""
+    import dataclasses
+
+    if cfg.family == "ssm":
+        return (dataclasses.replace(cfg, num_layers=n),
+                {**params, "layers": params["layers"][:n]})
+    if cfg.family == "hybrid":
+        ns = n // cfg.attn_every
+        p = {k: v for k, v in params.items() if k != "tail"}
+        p["blocks"] = params["blocks"][:ns]
+        return dataclasses.replace(cfg, num_layers=ns * cfg.attn_every), p
+    return (dataclasses.replace(cfg, num_layers=n, encoder_layers=n),
+            {**params, "encoder": params["encoder"][:n],
+             "decoder": params["decoder"][:n]})
+
+
+def form_errors(torch, cfg, params, r, prefill_logits, last_logits):
+    """Rel L2 of the flash prefill's logits against the "xla" path's (an
+    attention family only) and of the last decode step's against a fresh
+    "xla" prefill of prompt + generated tokens (for Mamba2: the one-step
+    recurrence against the chunked SSD form), on ``r``'s prompts, frames
+    and tokens."""
+    import dataclasses
+
+    from repro_torch.models import get_model
+
+    extra = {} if r.frames is None else {"frames": r.frames}
+    model = get_model(dataclasses.replace(cfg, attn_impl="xla"))
+    out = {}
+    if flash_per_prefill(cfg):
+        cache = model.init_cache(LM_BATCH, r.prompts.shape[1],
+                                 dtype=cfg.dtype, device=DEV)
+        x_logits, cache = model.prefill(params, r.prompts, cache, **extra)
+        out["flash vs xla prefill"] = rel_l2(torch, prefill_logits, x_logits)
+        del cache, x_logits
+    seq = torch.cat([r.prompts, r.tokens[:, :-1]], dim=1)
+    cache = model.init_cache(LM_BATCH, seq.shape[1], dtype=cfg.dtype,
+                             device=DEV)
+    f_logits, cache = model.prefill(params, seq, cache, **extra)
+    out[f"decode vs a fresh prefill of {seq.shape[1]}"] = rel_l2(
+        torch, last_logits, f_logits)
+    out["argmax agreement"] = float(
+        (last_logits.argmax(-1) == f_logits.argmax(-1)).float().mean())
+    return out
+
+
+def fmt_forms(errs) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+
+def hold_forms(torch, what, cfg, params, r):
+    """Serve ``r``'s prompts (and frames) again through ``cfg`` and
+    ``params``: a flash prefill, then the decode steps fed ``r``'s tokens;
+    its form errors must be under LM_REL_TOL."""
+    from repro_torch.models import get_model
+
+    extra = {} if r.frames is None else {"frames": r.frames}
+    model = get_model(cfg)
+    cache = model.init_cache(LM_BATCH, r.prompts.shape[1] + LM_GEN,
+                             dtype=cfg.dtype, device=DEV)
+    first, cache = model.prefill(params, r.prompts, cache, **extra)
+    logits = first
+    for i in range(LM_GEN - 1):
+        logits, cache = model.decode_step(params, r.tokens[:, i:i + 1], cache)
+    del cache
+    if not bool(torch.isfinite(first).all() & torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    errs = form_errors(torch, cfg, params, r, first, logits)
+    log(f"  {what}: {fmt_forms(errs)}")
+    for key, err in errs.items():
+        if key != "argmax agreement" and not err < LM_REL_TOL:
+            raise AssertionError(f"{what}: {key} differs by {err:.3g} "
+                                 f"(rel L2)")
+
+
+def flash_per_prefill(cfg) -> int:
+    """flash_attention launches of one prefill: none for Mamba2, one per
+    shared-block invocation for the hybrid, three per decoder layer
+    (self, cross) and encoder layer for the encoder-decoder."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.encoder_layers + 2 * cfg.num_layers
+
+
+def families_phase(torch, errs, timings):
+    """Serve each FAMILY_ARCHS model through the port's entry point at full
+    width and depth, then hold the kernel at every shape the prefill gave it,
+    the "xla" attention path and a fresh prefill against what it did.
+    Returns the flash launches of the serve runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import serve
+
+    launches = 0
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        prompt = WHISPER_PROMPT if cfg.family == "audio" else LM_PROMPT
+        shapes = {(LM_BATCH, hq, sq, skv, causal): n
+                  for a, _, hq, sq, skv, _, causal, n in FAMILY_FLASH
+                  if a == arch}
+        expected = flash_per_prefill(cfg)
+        if sum(shapes.values()) != expected:
+            raise AssertionError(f"{arch}: FAMILY_FLASH lists "
+                                 f"{sum(shapes.values())} launches a "
+                                 f"prefill, the config gives {expected}")
+        log(f"  {arch} ({cfg.family}): {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, ssm state {cfg.ssm_state} x {cfg.ssm_heads} "
+            f"heads, attention {cfg.num_heads} heads x {cfg.head_dim} every "
+            f"{cfg.attn_every or '-'}, encoder {cfg.encoder_layers} x "
+            f"{cfg.encoder_seq}, vocab {cfg.vocab_size}, {cfg.dtype}")
+        kf.reset_launches()
+        t0 = time.perf_counter()
+        with FlashCapture() as cap:
+            r = serve.main(["--arch", arch, "--batch", str(LM_BATCH),
+                            "--prompt-len", str(prompt), "--gen",
+                            str(LM_GEN), "--device", DEV])
+        wall = time.perf_counter() - t0
+        n = kf.LAUNCHES["flash_attention"]
+        launches += n
+        steps = LM_GEN - 1
+        timings[f"{arch} serve (init + prefill + decode)"] = wall
+        frames = "" if r.frames is None else f" + {cfg.encoder_seq} frames"
+        peak = ("not measured" if r.peak_bytes is None
+                else f"{r.peak_bytes / 2**30:.2f} GiB")
+        log(f"  {arch}: {param_count(r.params) / 1e9:.3f} B parameters; "
+            f"prefill {LM_BATCH}x{prompt}{frames}: "
+            f"{r.prefill_s * 1e3:.1f} ms; decode {steps} steps: "
+            f"{r.decode_s / steps * 1e3:.2f} ms/token "
+            f"({LM_BATCH * steps / r.decode_s:.1f} tokens/s); peak device "
+            f"memory {peak}; flash launches {n}")
+        if n != expected:
+            raise AssertionError(f"{arch}: the prefill launched "
+                                 f"flash_attention {n} times, not {expected}")
+        if (tuple(r.tokens.shape) != (LM_BATCH, LM_GEN)
+                or int(r.tokens.min()) < 0
+                or int(r.tokens.max()) >= cfg.vocab_size
+                or not bool(torch.isfinite(r.prefill_logits).all())
+                or not bool(torch.isfinite(r.last_logits).all())):
+            raise AssertionError(f"{arch}: bad tokens or non-finite logits")
+
+        seen = set()
+        for (qs, ks, _), (q, k, v, kwargs) in cap.calls.items():
+            seen.add((qs[0], qs[1], qs[2], ks[2], bool(kwargs.get("causal"))))
+            if (q.dtype != cfg.dtype or qs[3] != FAMILY_HEAD_DIM
+                    or kwargs.get("window") is not None):
+                raise AssertionError(f"{arch}: the kernel was handed {qs} x "
+                                     f"{ks} {q.dtype} {kwargs}")
+            errs.check(torch, "flash_attention",
+                       kf.flash_attention(q, k, v, **kwargs),
+                       flash_attention_ref(q, k, v, **kwargs), False,
+                       f"{arch} {qs}/{ks[1]}x{ks[2]} "
+                       f"{'causal' if kwargs.get('causal') else 'full'}",
+                       FLASH_TOL["bfloat16"])
+        if seen != set(shapes):
+            raise AssertionError(f"{arch}: the prefill handed the kernel "
+                                 f"{sorted(seen)}, FAMILY_FLASH lists "
+                                 f"{sorted(shapes)}")
+        del cap
+
+        # Two forms of the same function, compared.  In the served bf16
+        # at full depth they are measured only: the random-init SSM stack
+        # carries each layer's rounding into every later one, so its bf16
+        # forward drifts from its own float32 forward by more than
+        # LM_REL_TOL (PERF.md, section 6).  They are held to LM_REL_TOL on
+        # the served weights in float32 at full depth, and in bf16 on the
+        # first FAMILY_CUT layers.
+        served = form_errors(torch, cfg, r.params, r, r.prefill_logits,
+                             r.last_logits)
+        dt = str(cfg.dtype).split(".")[-1]
+        log(f"  {arch} {dt}, full depth (measured): {fmt_forms(served)}")
+        c32, p32 = dataclasses.replace(cfg, dtype=torch.float32), \
+            to_float32(torch, r.params)
+        hold_forms(torch, f"{arch} float32, full depth", c32, p32, r)
+        del p32
+        ccut, pcut = cut_depth(cfg, r.params, FAMILY_CUT[arch])
+        hold_forms(torch, f"{arch} {dt}, first {FAMILY_CUT[arch]} layers",
+                   ccut, pcut, r)
+        del r, pcut
+        torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------- phase 3e --------------------------------
@@ -2693,6 +3012,7 @@ def main() -> int:
     del x, g
     torch.cuda.empty_cache()
     sweep_flash(torch, errs)
+    family_rows = family_flash_shapes(torch, errs)
     timings["kernels"] = time.perf_counter() - t0
 
     log("== phase 3a: main path (GraphService)")
@@ -2745,6 +3065,14 @@ def main() -> int:
     for name, n in sharded_phase(torch, np, timings).items():
         launches[name] += n
     timings["sharded phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log(f"== phase 3h: LM serving, SSM / hybrid / encoder-decoder "
+        f"({', '.join(FAMILY_ARCHS)})")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += families_phase(torch, errs, timings)
+    flash_row["encdec"] = family_rows
+    timings["LM families phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

@@ -3,8 +3,9 @@
 ``get_config(name)`` returns the full published config; ``reduced(cfg)``
 shrinks it for CPU tests (same family and topology, tiny dims).  The port
 keeps its own copies of the config files: it imports nothing of the
-reference package.  Only the decoder-only families (dense, MoE, VLM) are
-ported; the others wait for their model code (ROADMAP.md, queue 1, item 10).
+reference package.  The decoder-only (dense, MoE, VLM), SSM, hybrid and
+audio encoder-decoder families are ported; gemma3_27b and
+llama4_maverick_400b wait for their configs (ROADMAP.md, queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ ARCHS = [
 ]
 
 # The architectures with a config file (and a model) in the port.
-PORTED = ("qwen3_32b", "codeqwen15_7b", "mistral_nemo_12b", "granite_moe_1b",
-          "qwen2_vl_72b")
+PORTED = ("mamba2_780m", "qwen3_32b", "codeqwen15_7b", "mistral_nemo_12b",
+          "granite_moe_1b", "qwen2_vl_72b", "whisper_large_v3", "zamba2_12b")
 
 # shape grid assigned to the LM family (seq_len, global_batch, kind)
 SHAPES = {
@@ -40,15 +41,28 @@ SHAPES = {
     "long_500k": (524288, 1, "decode"),
 }
 
+# long_500k needs sub-quadratic attention: SSM / hybrid only.
+LONG_OK_FAMILIES = ("ssm", "hybrid")
+
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "")
     if name not in PORTED:
         raise ValueError(
             f"repro_torch has no config {name!r}: the port serves {PORTED}; "
-            f"the other architectures wait for their model code (ROADMAP.md,"
-            f" queue 1, item 10)")
+            f"the other architectures wait for their configs (ROADMAP.md, "
+            f"queue 1, item 3)")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def shapes_for(cfg: ModelConfig):
+    """The live (shape) cells for an architecture (skips documented)."""
+    out = {}
+    for shape, (s, b, kind) in SHAPES.items():
+        if shape == "long_500k" and cfg.family not in LONG_OK_FAMILIES:
+            continue
+        out[shape] = (s, b, kind)
+    return out
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

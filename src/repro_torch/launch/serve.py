@@ -5,12 +5,15 @@
         --batch 4 --prompt-len 32 --gen 16
 
 Weights are random, drawn from a ``torch.Generator`` seeded 0 on the
-serving device; prompts from one seeded 1.  The KV cache is kept in the
-parameters' dtype.  Prefill runs the flash kernel on every layer; decode
-runs the chunked attention over the cache.  ``--device`` defaults to
-``cuda`` and raises where there is none; ``--device cpu`` runs the plain
-versions.  Serving from a checkpoint (``--ckpt-dir``) waits for the port of
-``repro.checkpoint`` (ROADMAP.md, queue 1, item 6).
+serving device; prompts from one seeded 1; for the encoder-decoder (audio)
+family, the frames [B, encoder_seq, d_model] that stand in for the audio
+frontend's output from one seeded 2, as the reference draws them.  The
+caches are kept in the parameters' dtype.  Prefill runs the flash kernel
+on every attention layer; decode runs the chunked attention over the
+cache.  ``--device`` defaults to ``cuda`` and raises where there is none;
+``--device cpu`` runs the plain versions.  Serving from a checkpoint
+(``--ckpt-dir``) waits for the port of ``repro.checkpoint`` (ROADMAP.md,
+queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.configs import PORTED, get_config, reduced as make_reduced
 from repro_torch.core.graph_state import resolve_device
 from repro_torch.models import ModelConfig, get_model
 
@@ -31,6 +34,7 @@ class ServeResult:
     cfg: ModelConfig
     params: dict
     prompts: torch.Tensor          # [B, prompt_len] int64
+    frames: Optional[torch.Tensor]  # [B, encoder_seq, d] f32 (encdec only)
     tokens: torch.Tensor           # [B, gen] generated, int64
     prefill_logits: torch.Tensor   # [B, 1, V] float32, the prompt's last
     last_logits: torch.Tensor      # [B, 1, V] of the last decode step
@@ -65,6 +69,12 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
     draw = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(1, cfg.vocab_size, (batch, prompt_len),
                             generator=draw, device=dev)
+    extra = {}
+    if cfg.family in ("encdec", "audio"):
+        extra["frames"] = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model),
+            generator=torch.Generator(device=dev).manual_seed(seed + 2),
+            device=dev)
     cache = model.init_cache(batch, prompt_len + gen_len, dtype=cfg.dtype,
                              device=dev)
     if dev.type == "cuda":
@@ -72,7 +82,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, cache)
+    logits, cache = model.prefill(params, prompts, cache, **extra)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -88,13 +98,14 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
     decode_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
-    return ServeResult(cfg, params, prompts, torch.cat(out, dim=1),
+    return ServeResult(cfg, params, prompts, extra.get("frames"),
+                       torch.cat(out, dim=1),
                        prefill_logits, logits, prefill_s, decode_s, peak)
 
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite_moe_1b")
+    ap.add_argument("--arch", default="granite_moe_1b", choices=PORTED)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -109,7 +120,7 @@ def main(argv=None) -> ServeResult:
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir: serving from a checkpoint is "
                                   "not ported yet (ROADMAP.md, queue 1, "
-                                  "item 6)")
+                                  "item 3)")
 
     cfg = get_config(args.arch)
     if args.reduced:

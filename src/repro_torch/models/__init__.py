@@ -1,4 +1,5 @@
-"""The decoder-only LM (dense / MoE / VLM) on one layer library, forward
-and serving (port of ``repro.models``)."""
+"""The LMs -- decoder-only (dense / MoE / VLM), Mamba2 SSM, Zamba2 hybrid
+and Whisper encoder-decoder -- on one layer library, forward and serving
+(port of ``repro.models``)."""
 from .config import ModelConfig  # noqa: F401
 from .registry import Model, get_model  # noqa: F401

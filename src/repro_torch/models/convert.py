@@ -2,11 +2,14 @@
 
 ``params_from_jax`` takes the JAX model's parameter pytree with its leaves
 as numpy arrays (``jax.tree.map(np.asarray, params)``; the per-layer
-parameters stacked on a leading L axis, as ``repro.models.transformer``
-keeps them) and returns the port's parameters -- the same dict, with the
-``layers`` unstacked into a list of per-layer dicts -- on ``device``, in
-the same dtypes.  Both packages then compute the same function, which is
-what the parity tests compare.  It imports no JAX.
+parameters stacked on leading axes, as ``repro.models`` keeps them) and
+returns the port's parameters -- the same dict, with each stack unstacked
+into (nested) lists of per-layer dicts -- on ``device``, in the same
+dtypes.  The stacks are ``STACKED``'s keys: ``layers`` (transformer,
+Mamba2), ``encoder`` / ``decoder`` (Whisper), ``tail`` and, stacked twice
+as [super-block, layer], ``blocks`` (Zamba2).  Both packages then compute
+the same function, which is what the parity tests compare.  It imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -30,12 +33,28 @@ def _tree(x, fn):
     return fn(x)
 
 
+# Stacked subtrees of the reference's parameters: key -> leading axes.
+STACKED = {"layers": 1, "encoder": 1, "decoder": 1, "tail": 1, "blocks": 2}
+
+
+def _first_leaf(x):
+    return _first_leaf(next(iter(x.values()))) if isinstance(x, dict) else x
+
+
+def _unstack(stacked: dict, depth: int):
+    """A tree whose leaves share ``depth`` leading axes -> nested lists of
+    trees of per-layer clones."""
+    n = len(_first_leaf(stacked))
+    parts = [_tree(stacked, lambda t, i=i: t[i]) for i in range(n)]
+    if depth > 1:
+        return [_unstack(p, depth - 1) for p in parts]
+    return [_tree(p, lambda t: t.clone()) for p in parts]
+
+
 def params_from_jax(tree: dict, device="cuda") -> dict:
     dev = resolve_device(device)
-    out = {k: _tree(v, lambda a: _tensor(a, dev))
-           for k, v in tree.items() if k != "layers"}
-    stacked = _tree(tree["layers"], lambda a: _tensor(a, dev))
-    n = len(stacked["ln1"])
-    out["layers"] = [_tree(stacked, lambda t, i=i: t[i].clone())
-                     for i in range(n)]
+    out = {}
+    for k, v in tree.items():
+        v = _tree(v, lambda a: _tensor(a, dev))
+        out[k] = _unstack(v, STACKED[k]) if k in STACKED else v
     return out

@@ -1,0 +1,120 @@
+"""Zamba2-style hybrid: a Mamba2 backbone and one weight-SHARED attention
+block, forward and serving (port of ``repro.models.hybrid``).
+
+The layer stack is organised as super-blocks of ``attn_every`` Mamba2
+layers, each followed by one invocation of a single shared transformer
+block (the same weights at every invocation point, as in Zamba2).  The
+remaining ``L % attn_every`` Mamba2 layers run after them.  The reference's
+simplification is kept: the shared block attends over the hidden stream
+only (Zamba2 concatenates the original embedding and uses 2x-width
+attention and LoRA adapters per invocation).
+
+Each invocation keeps its own KV cache (``attn.k/v [ns, B, KV, max_len,
+D]``) and one ``idx`` for all of them: the invocations advance together, as
+the transformer's layers do.  Caches are written in place.  ``loss_fn``
+waits for training (ROADMAP.md, queue 1, item 3).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.graph_state import resolve_device
+
+from . import layers as L
+from . import ssm as S
+from .config import ModelConfig
+
+
+def _n_super(cfg: ModelConfig):
+    return cfg.num_layers // cfg.attn_every, cfg.num_layers % cfg.attn_every
+
+
+def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random parameters on ``gen``'s device: ``blocks`` [ns][attn_every]
+    Mamba2 layers, ``tail`` [rem] (when rem > 0), ``shared``."""
+    ns, rem = _n_super(cfg)
+    dev = gen.device
+    params = {
+        "embed": L.init_embed(gen, cfg),
+        "lm_head": L.init_unembed(gen, cfg),
+        "blocks": [[S.init_layer(gen, cfg) for _ in range(cfg.attn_every)]
+                   for _ in range(ns)],
+        "shared": {"attn": L.init_attention(gen, cfg),
+                   "mlp": L.init_mlp(gen, cfg),
+                   "ln1": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev),
+                   "ln2": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev)},
+        "final_norm": L.init_rmsnorm(cfg.d_model, cfg.dtype, dev),
+    }
+    if rem:
+        params["tail"] = [S.init_layer(gen, cfg) for _ in range(rem)]
+    return params
+
+
+def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
+                  cache: Optional[dict], positions) -> torch.Tensor:
+    a, _ = L.attention(sp["attn"], L.rms_norm(h, sp["ln1"], cfg.norm_eps),
+                       cfg, positions=positions, cache=cache)
+    h = h + a
+    return h + L.mlp(sp["mlp"], L.rms_norm(h, sp["ln2"], cfg.norm_eps))
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            caches: Optional[dict] = None,
+            positions: Optional[torch.Tensor] = None):
+    """caches: None or dict(ssm={conv, ssd} [ns, ae, ...], attn={k, v}
+    [ns, ...] and idx, tail={conv, ssd} [rem, ...] or None).  Returns
+    ``(hidden [B,S,d], caches)``; with caches, every state and K/V row is
+    written into them in place and ``idx`` advances by S."""
+    h = L.embed(params["embed"], tokens)
+    sp = params["shared"]
+    ssm_c, tail_c = (None, None) if caches is None else (caches["ssm"],
+                                                          caches["tail"])
+    for j, block in enumerate(params["blocks"]):
+        for i, lp in enumerate(block):
+            h = S.residual_block(lp, h, cfg, S.layer_cache(ssm_c, j, i))
+        attn_c = None if caches is None else {
+            "k": caches["attn"]["k"][j], "v": caches["attn"]["v"][j],
+            "idx": caches["attn"]["idx"]}
+        h = _shared_block(sp, h, cfg, attn_c, positions)
+    for i, lp in enumerate(params.get("tail", ())):
+        h = S.residual_block(lp, h, cfg, S.layer_cache(tail_c, i))
+    if caches is not None:
+        attn = caches["attn"]
+        caches = {**caches, "attn": {**attn,
+                                     "idx": attn["idx"] + h.shape[1]}}
+    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero caches: SSM state per Mamba2 layer, K/V per invocation of the
+    shared block, and the fill ``idx``."""
+    ns, rem = _n_super(cfg)
+    dev = resolve_device(device)
+    shape = (ns, batch_size, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return {
+        "ssm": S.init_ssm_cache(cfg, batch_size, dtype, dev,
+                                lead=(ns, cfg.attn_every)),
+        "attn": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "idx": 0},
+        "tail": S.init_ssm_cache(cfg, batch_size, dtype, dev, lead=(rem,))
+        if rem else None,
+    }
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            cache: dict, positions: Optional[torch.Tensor] = None):
+    """Run the prompt through the model, filling the caches.
+    Returns (last-token logits [B, 1, V] in float32, cache)."""
+    h, cache = forward(params, tokens, cfg, caches=cache,
+                       positions=positions)
+    return L.unembed_logits(params["lm_head"], h[:, -1:, :]), cache
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                cache: dict, positions: Optional[torch.Tensor] = None):
+    """One incremental token: tokens [B, 1] -> (logits [B,1,V], cache)."""
+    return prefill(params, tokens, cfg, cache, positions=positions)

@@ -10,7 +10,7 @@ operands and accumulates in float32 as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -139,41 +139,48 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None, window: Optional[int] = None,
-              kv_x: Optional[torch.Tensor] = None, causal: bool = True):
+              kv_x: Union[torch.Tensor, str, None] = None,
+              causal: bool = True, use_rope: bool = True):
     """GQA attention. Returns ``(out, new_cache)``.
 
     cache (self-attn): dict(k=[B,KV,Smax,D], v=..., idx=int) -- keys are
     stored rotated; the fresh rows are written at ``idx`` IN PLACE (the
     returned cache holds the same tensors and ``idx + Sq``).
-    ``kv_x``: keys and values from this sequence instead (cross-attention:
-    no RoPE, no causal mask, no cache).  The reference's precomputed
-    cross-attention cache (``kv_x="cached"``) waits for the
-    encoder-decoder port.
+    ``kv_x``: a tensor [B, Skv, d] gives keys and values from that sequence
+    instead (cross-attention: no RoPE, no causal mask, no cache);
+    ``"cached"`` takes them from ``cache = dict(k=[B,KV,Se,D], v=...)``
+    (``init_cross_kv``) as they are: no projection, no qk-norm, no RoPE,
+    no causal mask, and the cache is returned unchanged.  ``use_rope=False``
+    leaves self-attention's q and k unrotated.
 
     Prefill (Sq > 1) with ``cfg.attn_impl == "flash"`` and no logit softcap
-    runs the flash kernel on the filled cache prefix ``[:idx + Sq]`` only:
-    the kernel aligns its causal mask at the ends, so the empty slots past
-    the prefix must not reach it.  Everything else (decode, ``"xla"``) runs
-    ``sdpa_chunked`` over the whole cache, whose absolute-position mask
-    hides the empty slots, with K/V repeated to the full head count.
+    runs the flash kernel; self-attention hands it the filled cache prefix
+    ``[:idx + Sq]`` only: the kernel aligns its causal mask at the ends, so
+    the empty slots past the prefix must not reach it.  Cross-attention
+    hands it the whole K/V, not causal.  Everything else (decode, ``"xla"``)
+    runs ``sdpa_chunked`` over the whole cache, whose absolute-position
+    mask hides the empty slots, with K/V repeated to the full head count.
     """
     b, sq, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, sq, h, hd)
-    src = x if kv_x is None else kv_x
-    skv_in = src.shape[1]
-    k = (src @ p["wk"]).reshape(b, skv_in, kv, hd).transpose(1, 2)
-    v = (src @ p["wv"]).reshape(b, skv_in, kv, hd).transpose(1, 2)
-    new_cache = None
+    cross_cached = isinstance(kv_x, str) and kv_x == "cached"
+    if cross_cached:
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    else:
+        k, v = _project_kv(p, cfg, x if kv_x is None else kv_x)
+        new_cache = None
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)  # [B,KV,S,D], D last
+        if not cross_cached:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)  # [B,KV,S,D], D last
     q = q.transpose(1, 2)   # [B, H, Sq, D]
 
     is_self = kv_x is None
     q_offset = cache["idx"] if (cache is not None and is_self) else 0
-    if is_self:
+    if use_rope and is_self:
         pos = positions if positions is not None else (
             q_offset + torch.arange(sq, device=x.device))[None].expand(b, sq)
         q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
@@ -201,6 +208,21 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                            window=window, softcap=cfg.logit_softcap)
     out = out.transpose(1, 2).reshape(b, sq, h * hd)
     return out @ p["wo"], new_cache
+
+
+def _project_kv(p: dict, cfg: ModelConfig, src: torch.Tensor):
+    """K and V [B, KV, S, D] of the sequence ``src`` [B, S, d]."""
+    shape = (src.shape[0], src.shape[1], cfg.num_kv_heads, cfg.head_dim)
+    return ((src @ p["wk"]).reshape(shape).transpose(1, 2),
+            (src @ p["wv"]).reshape(shape).transpose(1, 2))
+
+
+def init_cross_kv(p: dict, cfg: ModelConfig,
+                  enc_out: torch.Tensor) -> dict:
+    """Precompute cross-attention K/V [B, KV, Se, D] from the encoder's
+    output (the decode cache of ``kv_x="cached"``)."""
+    k, v = _project_kv(p, cfg, enc_out)
+    return {"k": k, "v": v}
 
 
 # -------------------------------- MLP ------------------------------------

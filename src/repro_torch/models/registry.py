@@ -6,8 +6,8 @@
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-The decoder-only families (dense, moe, vlm) are ported; ssm, hybrid and
-encdec raise until their model code is (ROADMAP.md, queue 1, item 10).
+For the encoder-decoder family ``prefill`` also takes ``frames=`` [B,
+encoder_seq, d_model], the stubbed audio frontend's output.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from . import transformer
+from . import encdec, hybrid, ssm, transformer
 from .config import ModelConfig
 
 
@@ -30,13 +30,16 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family in ("ssm", "hybrid", "encdec", "audio"):
-        raise NotImplementedError(
-            f"repro_torch: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, queue 1, item 10)")
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
+        mod = transformer
+    elif cfg.family == "ssm":
+        mod = ssm
+    elif cfg.family == "hybrid":
+        mod = hybrid
+    elif cfg.family in ("encdec", "audio"):
+        mod = encdec
+    else:
         raise ValueError(f"unknown family {cfg.family}")
-    mod = transformer
     return Model(
         cfg=cfg,
         init=lambda gen: mod.init(gen, cfg),

@@ -5,7 +5,7 @@ Layers are a Python list run by a Python loop; per-layer windows are
 Python ints (or None), so a prefill reaches the flash kernel on every
 layer.  The KV cache is one tensor per K and V, stacked over layers as in
 the reference, and is written in place.  ``loss_fn`` waits for training
-(ROADMAP.md, queue 1, item 10).
+(ROADMAP.md, queue 1, item 3).
 """
 from __future__ import annotations
 

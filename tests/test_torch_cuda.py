@@ -537,6 +537,71 @@ def test_cuda_flash_attention_bf16_cache_prefix(cuda_device, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,causal", [(300, 1500, False),
+                                           (1500, 1500, False),
+                                           (224, 224, True)])
+def test_cuda_flash_attention_encdec_shapes(cuda_device, sq, skv, causal):
+    """Whisper's shapes: 20 heads, 1500 keys (23 full 64-key tiles and 28
+    ragged rows) not causal, a transposed query against a cross cache laid
+    out [B, KV, Se, D], and a causal prefix of a longer self cache; bf16
+    to one rounding step."""
+    g = torch.Generator(device="cpu").manual_seed(sq + skv)
+    q = torch.randn((1, sq, 20, 64), generator=g).to(
+        cuda_device, torch.bfloat16).transpose(1, 2)
+    cache = torch.randn((2, 1, 20, skv + 32, 64), generator=g).to(
+        cuda_device, torch.bfloat16)
+    k, v = cache[0, :, :, :skv], cache[1, :, :, :skv]
+    before = tflash.LAUNCHES["flash_attention"]
+    got = tops.flash_attention(q, k, v, causal=causal)
+    exp = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), exp.float(), rtol=2**-7,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_12b",
+                                  "whisper_large_v3"])
+def test_cuda_lm_families_match_cpu(cuda_device, arch):
+    """A reduced SSM / hybrid / encoder-decoder model (f32) served on the
+    card equals the same weights on the CPU: prefill logits (flash kernel
+    on the card, its plain version on the CPU) and three decode steps."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+
+    cfg = reduced(get_config(arch))
+    m = get_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0))
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                         generator=torch.Generator().manual_seed(2))
+    toks = torch.randint(1, cfg.vocab_size, (2, 37),
+                         generator=torch.Generator().manual_seed(1))
+
+    def move(tree, dev):
+        if isinstance(tree, dict):
+            return {k: move(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [move(v, dev) for v in tree]
+        return tree.to(dev)
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        extra = {"frames": frames.to(dev)} if cfg.family == "audio" else {}
+        p = move(params, dev)
+        cache = m.init_cache(2, 41, dtype=torch.float32, device=dev)
+        logits, cache = m.prefill(p, toks.to(dev), cache, **extra)
+        steps = [logits.cpu()]
+        for i in range(3):
+            logits, cache = m.decode_step(p, toks[:, i:i + 1].to(dev), cache)
+            steps.append(logits.cpu())
+        out[str(dev)] = steps
+    assert cfg.attn_impl == "flash"
+    for got, exp in zip(out[str(cuda_device)], out["cpu"]):
+        torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_refuses_unaligned_stride(cuda_device):
     """A bf16 row stride TMA cannot take (136 bytes) raises, launching
     nothing."""

@@ -116,6 +116,37 @@ def test_attention_without_cache_and_cross(impl, softcap):
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
 
 
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+@pytest.mark.parametrize("sq", [11, 1])
+def test_attention_cached_cross_and_no_rope(impl, sq):
+    """The encoder-decoder's modes: cross-attention from a precomputed
+    cache (``init_cross_kv``, ``kv_x="cached"``: no projection, no qk-norm,
+    no RoPE, not causal, the cache returned as it is), on a prefill and a
+    decode-sized query; and self-attention with ``use_rope=False``, not
+    causal."""
+    jcfg, tcfg, jp, tp = _attn_setup("qwen3_32b", 5)  # qk-norm on
+    tcfg = dataclasses.replace(tcfg, attn_impl=impl)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, sq, tcfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 19, tcfg.d_model)).astype(np.float32)
+    jkv = JL.init_cross_kv(jp, jcfg, jnp.asarray(enc))
+    tkv = TL.init_cross_kv(tp, tcfg, torch.from_numpy(enc))
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tkv[key].numpy(), np.asarray(jkv[key]),
+                                   **TOL)
+    exp, jc = JL.attention(jp, jnp.asarray(x), jcfg, kv_x="cached",
+                           cache=jkv, causal=False, use_rope=False)
+    got, tc = TL.attention(tp, torch.from_numpy(x), tcfg, kv_x="cached",
+                           cache=tkv, causal=False, use_rope=False)
+    assert tc is tkv and jc is jkv
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+    exp, _ = JL.attention(jp, jnp.asarray(x), jcfg, causal=False,
+                          use_rope=False)
+    got, _ = TL.attention(tp, torch.from_numpy(x), tcfg, causal=False,
+                          use_rope=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+
+
 def test_mlp_embed_unembed():
     jcfg, tcfg = _cfgs("mistral_nemo_12b")
     key = jax.random.PRNGKey(5)

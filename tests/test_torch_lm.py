@@ -236,5 +236,6 @@ def test_configs_and_registry():
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
     with pytest.raises(ValueError, match="ROADMAP"):
         get_config("gemma3_27b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(dataclasses.replace(get_config("qwen3_32b"), family="ssm"))
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(dataclasses.replace(get_config("qwen3_32b"),
+                                      family="rnn"))

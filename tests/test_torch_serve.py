@@ -22,18 +22,28 @@ ARGS = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "9",
         "--gen", "5"]
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b", "mistral_nemo_12b"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "mistral_nemo_12b",
+                                  "mamba2_780m", "zamba2_12b",
+                                  "whisper_large_v3"])
 def test_main_runs_reduced_on_cpu(arch, capsys):
     r = serve.main(["--arch", arch, *ARGS])
     assert "[serve]" in capsys.readouterr().out
     assert r.tokens.shape == (2, 5) and r.prompts.shape == (2, 9)
+    if r.cfg.family == "audio":  # frames from a generator seeded 0 + 2
+        exp = torch.randn((2, r.cfg.encoder_seq, r.cfg.d_model),
+                          generator=torch.Generator().manual_seed(2))
+        assert torch.equal(r.frames, exp)
+    else:
+        assert r.frames is None
     assert int(r.tokens.min()) >= 0 and int(r.tokens.max()) < 256
     assert r.prefill_logits.shape == (2, 1, 256)
     assert bool(torch.isfinite(r.last_logits).all())
     assert r.peak_bytes is None  # no device memory on the CPU
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b", "qwen3_32b"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "qwen3_32b",
+                                  "mamba2_780m", "zamba2_12b",
+                                  "whisper_large_v3"])
 def test_greedy_tokens_match_reference(arch):
     jcfg = jax_reduced(jax_config(arch))
     jm = jax_model(jcfg)
@@ -42,8 +52,10 @@ def test_greedy_tokens_match_reference(arch):
     r = serve.serve(reduced(get_config(arch)), batch=2, prompt_len=9,
                     gen_len=5, device="cpu", params=params)
     cache = jm.init_cache(2, 14, dtype=jnp.float32)
-    logits, cache = jax.jit(jm.prefill)(jparams, jnp.asarray(r.prompts.numpy()),
-                                        cache)
+    extra = {} if r.frames is None else {
+        "frames": jnp.asarray(r.frames.numpy())}
+    logits, cache = jax.jit(lambda p, t, c, kw: jm.prefill(p, t, c, **kw))(
+        jparams, jnp.asarray(r.prompts.numpy()), cache, extra)
     np.testing.assert_allclose(r.prefill_logits.numpy(), np.asarray(logits),
                                rtol=1e-4, atol=1e-4)
     decode = jax.jit(jm.decode_step)

@@ -44,10 +44,13 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
     ``bc_mode``.  The ranks' streams
     overlap on the card, so the summed device time can exceed the wall;
   * ``<arch> prefill`` / ``<arch> decode x N`` -- for each model of
-    ``chip_smoke.LM_ARCHS`` at its serving shape (``LM_BATCH`` prompts of
-    ``LM_PROMPT`` tokens, seed 0 weights): one prefill after an unprofiled
-    warm-up prefill, then ``DECODE_STEPS`` greedy decode steps after as
-    many unprofiled warm-up steps.
+    ``chip_smoke.LM_ARCHS`` and ``chip_smoke.FAMILY_ARCHS`` at its serving
+    shape (``LM_BATCH`` prompts of ``LM_PROMPT`` tokens, Whisper's of
+    ``WHISPER_PROMPT`` over its 1500 frames, seed 0 weights): one prefill
+    after an unprofiled warm-up prefill, then ``DECODE_STEPS`` greedy
+    decode steps after as many unprofiled warm-up steps;
+  * ``<mamba2> ssd_chunked, one layer`` -- one Mamba2 layer's SSD at the
+    serving shape (the chunk loop's launches and busy share).
 
 For each window it prints the host wall time, the summed device time of
 every kernel, the device busy share (device time / wall; the profiler's
@@ -327,28 +330,61 @@ def static_window(torch, np, smoke, query_name):
     return row
 
 
+def ssd_window(torch, smoke, cfg):
+    """One Mamba2 layer's ``ssd_chunked`` at the serving shape: the chunk
+    loop's launches and busy share (random inputs of the layer's shapes and
+    dtypes: dt in [0.3, 1.3], as softplus of the init's projections)."""
+    from repro_torch.models import ssm
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    b, s, h = smoke.LM_BATCH, smoke.LM_PROMPT, cfg.ssm_heads
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(cfg.dtype)
+
+    x = draw(b, s, h, cfg.ssm_headdim)
+    dt = torch.rand((b, s, h), generator=g, device="cuda") + 0.3
+    a = -torch.ones(h, device="cuda")
+    bm, cm = draw(b, s, cfg.ssm_state), draw(b, s, cfg.ssm_state)
+    state = torch.zeros((b, h, cfg.ssm_headdim, cfg.ssm_state),
+                        dtype=cfg.dtype, device="cuda")
+
+    def run():
+        ssm.ssd_chunked(x, dt, a, bm, cm, cfg.ssm_chunk, state)
+
+    run()
+    return profile_window(torch, f"{cfg.name} ssd_chunked, one layer", run)
+
+
 def lm_windows(torch, smoke):
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
 
     out = []
-    for arch in smoke.LM_ARCHS:
+    for arch in smoke.LM_ARCHS + smoke.FAMILY_ARCHS:
         cfg = get_config(arch)
         model = get_model(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         draw = torch.Generator(device="cuda").manual_seed(1)
-        prompts = torch.randint(1, cfg.vocab_size,
-                                (smoke.LM_BATCH, smoke.LM_PROMPT),
+        prompt = (smoke.WHISPER_PROMPT if cfg.family == "audio"
+                  else smoke.LM_PROMPT)
+        prompts = torch.randint(1, cfg.vocab_size, (smoke.LM_BATCH, prompt),
                                 generator=draw, device="cuda")
+        extra = {}
+        if cfg.family == "audio":  # as launch/serve.py draws them
+            extra["frames"] = torch.randn(
+                (smoke.LM_BATCH, cfg.encoder_seq, cfg.d_model),
+                generator=torch.Generator(device="cuda").manual_seed(2),
+                device="cuda")
         # Room for four runs of decode(): warm-up, profiled, timed and the
         # host-read count.
-        cache = model.init_cache(smoke.LM_BATCH, smoke.LM_PROMPT
-                                 + 4 * DECODE_STEPS, dtype=cfg.dtype)
+        cache = model.init_cache(smoke.LM_BATCH, prompt + 4 * DECODE_STEPS,
+                                 dtype=cfg.dtype)
         state = {}
 
         def prefill():
             state["logits"], state["cache"] = model.prefill(params, prompts,
-                                                            cache)
+                                                            cache, **extra)
 
         def decode():
             for _ in range(DECODE_STEPS):
@@ -372,8 +408,10 @@ def lm_windows(torch, smoke):
         print(f"  unprofiled decode {step_ms:.2f} ms/step, "
               f"{reads / DECODE_STEPS:.2f} synchronising host reads per step",
               flush=True)
-        del params, cache, state
+        del params, cache, state, extra
         torch.cuda.empty_cache()
+        if cfg.family == "ssm":
+            out.append(ssd_window(torch, smoke, cfg))
     return out
 
 
