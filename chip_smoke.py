@@ -52,7 +52,9 @@ exit code:
                  phase 3h's four prefill shapes (FAMILY_FLASH: Zamba2's
                  shared block, Whisper's encoder, decoder self- and
                  cross-attention), its inputs laid out as the models hand
-                 them over;
+                 them over, and at phase 3i's three (LM2_FLASH: gemma3's
+                 layers windowed at 1024 and global, llama4's 40/8 GQA; SDPA
+                 beside the windowed one with a boolean band mask);
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -175,14 +177,36 @@ exit code:
                  first FAMILY_CUT layers (the random-init SSM stacks carry
                  one layer's bf16 rounding into every later one: their
                  full-depth bf16 forms drift apart beyond LM_REL_TOL);
+  3i. LM, last configs and training -- gemma3_27b at full size through
+                 the serve entry point and llama4_maverick_400b at full
+                 width cut to LLAMA4_LAYERS layers (through serve.serve),
+                 as 3d serves its models: flash launches exactly 62 / 2,
+                 every captured call (gemma3's layer 0, windowed, and layer
+                 5, global) against the plain version, flash vs "xla" and
+                 the last decode step vs a fresh prefill to LM_REL_TOL
+                 (llama4's no-drop check on batch row 0).  Then the
+                 trainer's loss and gradients on reduced granite_moe_1b and
+                 mamba2_780m held against the CPU (1e-4), and
+                 granite_moe_1b trained at full width and depth through
+                 repro_torch.launch.train (TRAIN_STEPS steps at TRAIN_SEQ
+                 tokens, the largest batch of TRAIN_BATCHES that fits,
+                 checkpoints every TRAIN_CKPT_EVERY): finite losses, the
+                 last below the first; a RestartableLoop over the same step
+                 function crashed at TRAIN_FAIL_AT and resumed must equal
+                 the uninterrupted run bit for bit (both under
+                 torch.use_deterministic_algorithms); serve --ckpt-dir must
+                 give the trained parameters' prefill logits bit for bit.
+                 Prints step times, tokens/s, the model-FLOP share of the
+                 bf16 peak and peak memory;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
                  launches are those of 3a, 3e and 3g; bool_mm_masked's and
                  minplus_mm_masked's those of 3b, 3c and 3g;
-                 flash_attention's those of 3d and 3h.  The masked rows
+                 flash_attention's those of 3d, 3h and 3i.  The masked rows
                  carry their band-shape timings under "band" (and
                  count_mm_masked's backward under "band_t"), the
-                 flash_attention row 3h's four shapes under "encdec".
+                 flash_attention row 3h's four shapes under "encdec" and
+                 3i's three under "gemma3_llama4".
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -253,7 +277,8 @@ FLASH_SWEEP = [(1, 4, 4, 32, 32, 16, True, None),
 # Keys a kernel row may carry beyond the required ones: the boolean rows'
 # FP32 yardstick, the static mode's shape and the packs' own times.
 EXTRA_KEYS = ("matmul_fp32_ms", "static", "pack_right_ms", "pack_left_ms",
-              "pack_left_static_ms", "band", "band_t", "encdec")
+              "pack_left_static_ms", "band", "band_t", "encdec",
+              "gemma3_llama4")
 LM_ARCHS = ("mistral_nemo_12b", "granite_moe_1b")
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # Two bf16 forward passes that differ only in where they round (the flash
@@ -282,6 +307,31 @@ FAMILY_FLASH = (
      False, 32),
 )
 FAMILY_HEAD_DIM = 64
+# Phase 3i: gemma3_27b at full size, and llama4_maverick_400b at full width
+# with its depth cut to LLAMA4_LAYERS (34.4 B parameters, 68.8 GB of bf16
+# weights at two layers; three would need about 101 GB), served as 3d
+# serves its models.
+LM2_ARCHS = ("gemma3_27b", "llama4_maverick_400b")
+LLAMA4_LAYERS = 2
+# flash_attention on 3i's prefills (batch LM_BATCH, prompt LM_PROMPT, bf16,
+# head_dim LM2_HEAD_DIM, K/V the prefix of a cache of LM_PROMPT + LM_GEN
+# rows): arch, caller, heads, KV heads, window, launches per prefill.
+LM2_FLASH = (
+    ("gemma3_27b", "gemma3 local", 32, 16, 1024, 52),
+    ("gemma3_27b", "gemma3 global", 32, 16, None, 10),
+    ("llama4_maverick_400b", "llama4", 40, 8, None, LLAMA4_LAYERS),
+)
+LM2_HEAD_DIM = 128
+# 3i's training: granite_moe_1b at full width and depth, at train_4k's
+# sequence; its global batch of 256 is cut to the largest of TRAIN_BATCHES
+# that fits the card.  The restart crashes at TRAIN_FAIL_AT and resumes from
+# the checkpoint before it.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "granite_moe_1b", 4096, 12, 3e-4
+TRAIN_BATCHES = (8, 4, 2)
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 9
+# Reduced configs whose trainer gradients on the card are held against the
+# CPU's: the MoE (routing, dropped pairs, load-balance loss) and the SSD.
+TRAIN_PARITY_ARCHS = ("granite_moe_1b", "mamba2_780m")
 # Depth of 3h's bf16 form checks: Mamba2 layers, hybrid layers (one
 # super-block of six and its shared-block invocation), encoder and decoder
 # layers of Whisper (all of them: the transformer's bf16 forms agree at full
@@ -1068,57 +1118,97 @@ def sweep_flash(torch, errs):
                    tol)
 
 
-def family_flash_inputs(torch, g, hq, sq, skv, rows, causal):
-    """Random bf16 q, k, v of one FAMILY_FLASH shape, laid out as the model
-    hands them to the kernel: a rotated q or k is contiguous, an unrotated
-    one (cross-attention's q, a projected v) a transposed [B, S, H, D]
-    view, and K/V held in a cache the prefix of its first ``rows`` rows."""
-    shape = (LM_BATCH, hq, sq, FAMILY_HEAD_DIM)
+def family_flash_inputs(torch, g, hq, sq, skv, rows, causal, hkv=None,
+                        d=FAMILY_HEAD_DIM):
+    """Random bf16 q, k, v of one prefill shape (``hkv`` KV heads, default
+    ``hq``; head_dim ``d``), laid out as the model hands them to the
+    kernel: a rotated q or k is contiguous, an unrotated one (cross-
+    attention's q, a projected v) a transposed [B, S, H, D] view, and K/V
+    held in a cache the prefix of its first ``rows`` rows."""
+    hkv = hq if hkv is None else hkv
 
     def draw(*dims):
         return torch.randn(dims, generator=g, device=DEV).to(torch.bfloat16)
 
     cross = not causal and rows is not None
-    q = (draw(LM_BATCH, sq, hq, FAMILY_HEAD_DIM).transpose(1, 2) if cross
-         else draw(*shape))
+    q = (draw(LM_BATCH, sq, hq, d).transpose(1, 2) if cross
+         else draw(LM_BATCH, hq, sq, d))
     if rows is None:   # the encoder: k rotated, v as projected
-        k = draw(LM_BATCH, hq, skv, FAMILY_HEAD_DIM)
-        v = draw(LM_BATCH, skv, hq, FAMILY_HEAD_DIM).transpose(1, 2)
+        k = draw(LM_BATCH, hkv, skv, d)
+        v = draw(LM_BATCH, skv, hkv, d).transpose(1, 2)
     else:
-        k = draw(LM_BATCH, hq, rows, FAMILY_HEAD_DIM)[:, :, :skv]
-        v = draw(LM_BATCH, hq, rows, FAMILY_HEAD_DIM)[:, :, :skv]
+        k = draw(LM_BATCH, hkv, rows, d)[:, :, :skv]
+        v = draw(LM_BATCH, hkv, rows, d)[:, :, :skv]
     return q, k, v
 
 
-def family_flash_shapes(torch, errs):
-    """flash_attention at phase 3h's four prefill shapes (FAMILY_FLASH): each
-    held against its plain version at the bf16 tolerance, then timed beside
-    SDPA with its bound.  Returns the sub-rows kept under the kernel row's
-    "encdec" key."""
+def flash_shape_row(torch, errs, what, q, k, v, causal, window, extra):
+    """flash_attention on one prefill shape: held against its plain version
+    at the bf16 tolerance, then timed beside SDPA (with a boolean band mask
+    where the call is windowed) and its bound.  Returns the sub-row kept
+    under an EXTRA_KEYS entry of the kernel row."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kf
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_ref, flash_offset
 
+    kw = dict(causal=causal, window=window)
+    err = errs.check(torch, "flash_attention", kf.flash_attention(q, k, v, **kw),
+                     flash_attention_ref(q, k, v, **kw), False, what,
+                     FLASH_TOL["bfloat16"])
+    sq, skv = q.shape[2], k.shape[2]
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+    else:
+        i = torch.arange(sq, device=DEV)[:, None] + flash_offset(sq, skv,
+                                                                 causal)
+        j = torch.arange(skv, device=DEV)[None]
+        band = (j > i - window) & ((j <= i) if causal else True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                  enable_gqa=True)
+    row = kernel_row(
+        torch, "flash_attention", lambda: kf.flash_attention(q, k, v, **kw),
+        lambda: flash_attention_ref(q, k, v, **kw),
+        attention_work(q, k, causal, window), BF16_PEAK, library)
+    return band_row(row, dict(**extra, q=list(q.shape), kv=list(k.shape),
+                              causal=causal, window=window,
+                              max_abs_err=err))
+
+
+def family_flash_shapes(torch, errs):
+    """flash_attention at phase 3h's four prefill shapes (FAMILY_FLASH).
+    Returns the sub-rows kept under the kernel row's "encdec" key."""
     g = torch.Generator(device=DEV).manual_seed(3)
     out = []
     for arch, caller, hq, sq, skv, rows, causal, n in FAMILY_FLASH:
         q, k, v = family_flash_inputs(torch, g, hq, sq, skv, rows, causal)
         what = (f"{caller} {LM_BATCH}x{hq}x{sq}x{skv}x{FAMILY_HEAD_DIM} "
                 f"{'causal' if causal else 'full'}")
-        err = errs.check(torch, "flash_attention",
-                         kf.flash_attention(q, k, v, causal=causal),
-                         flash_attention_ref(q, k, v, causal=causal), False,
-                         what, FLASH_TOL["bfloat16"])
-        row = kernel_row(
-            torch, "flash_attention",
-            lambda: kf.flash_attention(q, k, v, causal=causal),
-            lambda: flash_attention_ref(q, k, v, causal=causal),
-            attention_work(q, k, causal, None), BF16_PEAK,
-            lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   is_causal=causal))
-        out.append(band_row(row, dict(
-            arch=arch, caller=caller, q=list(q.shape), kv=list(k.shape),
-            causal=causal, launches_per_prefill=n, max_abs_err=err)))
+        out.append(flash_shape_row(torch, errs, what, q, k, v, causal, None,
+                                   dict(arch=arch, caller=caller,
+                                        launches_per_prefill=n)))
+        del q, k, v
+    return out
+
+
+def lm2_flash_shapes(torch, errs):
+    """flash_attention at phase 3i's prefill shapes (LM2_FLASH: gemma3's
+    windowed and global layers, llama4's 40/8 GQA).  Returns the sub-rows
+    kept under the kernel row's "gemma3_llama4" key."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    out = []
+    for arch, caller, hq, hkv, window, n in LM2_FLASH:
+        q, k, v = family_flash_inputs(torch, g, hq, LM_PROMPT, LM_PROMPT,
+                                      LM_PROMPT + LM_GEN, True, hkv,
+                                      LM2_HEAD_DIM)
+        what = (f"{caller} {LM_BATCH}x{hq}/{hkv}x{LM_PROMPT}x{LM2_HEAD_DIM}"
+                f" w={window}")
+        out.append(flash_shape_row(torch, errs, what, q, k, v, True, window,
+                                   dict(arch=arch, caller=caller,
+                                        launches_per_prefill=n)))
         del q, k, v
     return out
 
@@ -1503,19 +1593,112 @@ def rel_l2(torch, got, exp):
                  / torch.linalg.vector_norm(exp.float()))
 
 
+def gib(nbytes) -> str:
+    return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+def served(torch, timings, arch, cfg, run):
+    """``run()`` (a serve of ``arch``) under a ``FlashCapture`` with the
+    kernel's launch count reset: logs its times, peak memory and launches,
+    checks its tokens and logits.  Returns (result, launches, capture)."""
+    from repro_torch.kernels import flash_attention as kf
+
+    kf.reset_launches()
+    t0 = time.perf_counter()
+    with FlashCapture() as cap:
+        r = run()
+    wall = time.perf_counter() - t0
+    n = kf.LAUNCHES["flash_attention"]
+    b, steps = r.prompts.shape[0], LM_GEN - 1
+    timings[f"{arch} serve (init + prefill + decode)"] = wall
+    log(f"  {arch} prefill {b}x{r.prompts.shape[1]}: "
+        f"{r.prefill_s * 1e3:.1f} ms ({b * r.prompts.shape[1] / r.prefill_s:.0f}"
+        f" tokens/s); decode {steps} steps: "
+        f"{r.decode_s / steps * 1e3:.2f} ms/token "
+        f"({b * steps / r.decode_s:.1f} tokens/s); peak device "
+        f"memory {gib(r.peak_bytes)}; flash launches {n}")
+    if (tuple(r.tokens.shape) != (b, LM_GEN)
+            or int(r.tokens.min()) < 0
+            or int(r.tokens.max()) >= cfg.vocab_size
+            or not bool(torch.isfinite(r.prefill_logits).all())
+            or not bool(torch.isfinite(r.last_logits).all())):
+        raise AssertionError(f"{arch}: bad tokens or non-finite logits")
+    return r, n, cap
+
+
+def lm_forms(torch, timings, arch, cfg, r, no_drop_rows=None):
+    """The served prefill's logits against the port's "xla" path on the
+    same weights, and the last decode step's against a fresh prefill of
+    prompt + generated tokens, both to LM_REL_TOL.  For an MoE model the
+    decode check runs one decode step at a capacity that drops nothing,
+    on the first ``no_drop_rows`` batch rows (all when None)."""
+    import dataclasses
+
+    from repro_torch.models import get_model
+
+    b = r.prompts.shape[0]
+    xla = get_model(dataclasses.replace(cfg, attn_impl="xla"))
+    cache = xla.init_cache(b, r.prompts.shape[1], dtype=cfg.dtype,
+                           device=DEV)
+    t0 = time.perf_counter()
+    x_logits, cache = xla.prefill(r.params, r.prompts, cache)
+    torch.cuda.synchronize()
+    timings[f"{arch} prefill, xla path (comparison)"] = \
+        time.perf_counter() - t0
+    err = rel_l2(torch, r.prefill_logits, x_logits)
+    agree = float((r.prefill_logits.argmax(-1)
+                   == x_logits.argmax(-1)).float().mean())
+    log(f"  {arch} prefill logits, flash vs xla path: rel L2 {err:.3g}, "
+        f"max |diff| {float((r.prefill_logits - x_logits).abs().max()):.3g}"
+        f", argmax agreement {agree:.2f}")
+    if not err < LM_REL_TOL:
+        raise AssertionError(f"{arch}: flash and xla prefill logits "
+                             f"differ by {err:.3g} (rel L2)")
+    del cache, x_logits
+
+    # A decode step must equal a fresh prefill of the same tokens, both
+    # through the "xla" attention that decode runs (flash vs xla is held
+    # above).  For an MoE model that holds only without capacity drops: at
+    # decode an expert has max(1, int(B * k * 1.25 / E)) = 1 slot, so the
+    # served decode drops pairs that a prefill keeps.  Its check runs one
+    # decode step at capacity_factor = E / k (every token fits).
+    rows = slice(0, no_drop_rows)
+    seq = torch.cat([r.prompts, r.tokens[:, :-1]], dim=1)[rows]
+    ncfg, dec = dataclasses.replace(cfg, attn_impl="xla"), r.last_logits
+    if cfg.num_experts:
+        ncfg = dataclasses.replace(
+            ncfg, capacity_factor=cfg.num_experts / cfg.top_k)
+        m = get_model(ncfg)
+        cache = m.init_cache(seq.shape[0], seq.shape[1], dtype=cfg.dtype,
+                             device=DEV)
+        _, cache = m.prefill(r.params, seq[:, :-1], cache)
+        dec, cache = m.decode_step(r.params, seq[:, -1:], cache)
+        del cache
+    model = get_model(ncfg)
+    cache = model.init_cache(seq.shape[0], seq.shape[1], dtype=cfg.dtype,
+                             device=DEV)
+    f_logits, cache = model.prefill(r.params, seq, cache)
+    err = rel_l2(torch, dec, f_logits)
+    agree = float((dec.argmax(-1) == f_logits.argmax(-1)).float().mean())
+    on = "" if no_drop_rows is None else f" on {seq.shape[0]} batch row(s)"
+    log(f"  {arch} {'last served' if dec is r.last_logits else 'no-drop'}"
+        f" decode step vs a fresh prefill of {seq.shape[1]} tokens{on}: rel "
+        f"L2 {err:.3g}, argmax agreement {agree:.2f}")
+    if not err < LM_REL_TOL:
+        raise AssertionError(f"{arch}: decode logits differ from a "
+                             f"fresh prefill by {err:.3g} (rel L2)")
+
+
 def lm_phase(torch, errs, timings):
     """Serve each LM_ARCHS model through the port's entry point, then hold
     the kernel, the "xla" path and a fresh prefill against what it did.
     Returns (flash launches of the serve runs, the kernel row timed at the
     first model's layer 0)."""
-    import dataclasses
-
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.launch import serve
-    from repro_torch.models import get_model
 
     launches, row = 0, None
     for arch in LM_ARCHS:
@@ -1525,33 +1708,14 @@ def lm_phase(torch, errs, timings):
             f"{cfg.d_ff}, vocab {cfg.vocab_size}, experts "
             f"{cfg.num_experts} top-{cfg.top_k}, {cfg.dtype}, "
             f"{cfg.params_dense() / 1e9:.2f} B params")
-        kf.reset_launches()
-        t0 = time.perf_counter()
-        with FlashCapture() as cap:
-            r = serve.main(["--arch", arch, "--batch", str(LM_BATCH),
-                            "--prompt-len", str(LM_PROMPT), "--gen",
-                            str(LM_GEN)])
-        wall = time.perf_counter() - t0
-        n = kf.LAUNCHES["flash_attention"]
+        r, n, cap = served(torch, timings, arch, cfg, lambda: serve.main(
+            ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
+             str(LM_PROMPT), "--gen", str(LM_GEN)]))
         launches += n
-        steps = LM_GEN - 1
-        timings[f"{arch} serve (init + prefill + decode)"] = wall
-        log(f"  {arch} prefill {LM_BATCH}x{LM_PROMPT}: "
-            f"{r.prefill_s * 1e3:.1f} ms ({LM_BATCH * LM_PROMPT / r.prefill_s:.0f}"
-            f" tokens/s); decode {steps} steps: "
-            f"{r.decode_s / steps * 1e3:.2f} ms/token "
-            f"({LM_BATCH * steps / r.decode_s:.1f} tokens/s); peak device "
-            f"memory {r.peak_bytes / 2**30:.2f} GiB; flash launches {n}")
         if n != cfg.num_layers:
             raise AssertionError(f"{arch}: the prefill launched "
                                  f"flash_attention {n} times, not once per "
                                  f"layer ({cfg.num_layers})")
-        if (tuple(r.tokens.shape) != (LM_BATCH, LM_GEN)
-                or int(r.tokens.min()) < 0
-                or int(r.tokens.max()) >= cfg.vocab_size
-                or not bool(torch.isfinite(r.prefill_logits).all())
-                or not bool(torch.isfinite(r.last_logits).all())):
-            raise AssertionError(f"{arch}: bad tokens or non-finite logits")
 
         q, k, v, kw = cap.first
         if (tuple(q.shape) != (LM_BATCH, cfg.num_heads, LM_PROMPT,
@@ -1573,53 +1737,8 @@ def lm_phase(torch, errs, timings):
                                                        is_causal=True,
                                                        enable_gqa=True))
         del q, k, v, cap
-
-        xla = get_model(dataclasses.replace(cfg, attn_impl="xla"))
-        cache = xla.init_cache(LM_BATCH, LM_PROMPT, dtype=cfg.dtype)
-        t0 = time.perf_counter()
-        x_logits, cache = xla.prefill(r.params, r.prompts, cache)
-        torch.cuda.synchronize()
-        timings[f"{arch} prefill, xla path (comparison)"] = \
-            time.perf_counter() - t0
-        err = rel_l2(torch, r.prefill_logits, x_logits)
-        agree = float((r.prefill_logits.argmax(-1)
-                       == x_logits.argmax(-1)).float().mean())
-        log(f"  {arch} prefill logits, flash vs xla path: rel L2 {err:.3g}, "
-            f"max |diff| {float((r.prefill_logits - x_logits).abs().max()):.3g}"
-            f", argmax agreement {agree:.2f}")
-        if not err < LM_REL_TOL:
-            raise AssertionError(f"{arch}: flash and xla prefill logits "
-                                 f"differ by {err:.3g} (rel L2)")
-        del cache, x_logits
-
-        # A decode step must equal a fresh prefill of the same tokens, both
-        # through the "xla" attention that decode runs (flash vs xla is held
-        # above).  For an MoE model that holds only without capacity drops:
-        # at decode an expert has max(1, int(B * k * 1.25 / E)) = 1 slot, so
-        # the served decode drops pairs that a prefill keeps.  Its check
-        # runs one decode step at capacity_factor = E / k (every token fits).
-        seq = torch.cat([r.prompts, r.tokens[:, :-1]], dim=1)
-        ncfg, dec = dataclasses.replace(cfg, attn_impl="xla"), r.last_logits
-        if cfg.num_experts:
-            ncfg = dataclasses.replace(
-                ncfg, capacity_factor=cfg.num_experts / cfg.top_k)
-            m = get_model(ncfg)
-            cache = m.init_cache(LM_BATCH, seq.shape[1], dtype=cfg.dtype)
-            _, cache = m.prefill(r.params, seq[:, :-1], cache)
-            dec, cache = m.decode_step(r.params, seq[:, -1:], cache)
-            del cache
-        model = get_model(ncfg)
-        cache = model.init_cache(LM_BATCH, seq.shape[1], dtype=cfg.dtype)
-        f_logits, cache = model.prefill(r.params, seq, cache)
-        err = rel_l2(torch, dec, f_logits)
-        agree = float((dec.argmax(-1) == f_logits.argmax(-1)).float().mean())
-        log(f"  {arch} {'last served' if dec is r.last_logits else 'no-drop'}"
-            f" decode step vs a fresh prefill of {seq.shape[1]} tokens: rel "
-            f"L2 {err:.3g}, argmax agreement {agree:.2f}")
-        if not err < LM_REL_TOL:
-            raise AssertionError(f"{arch}: decode logits differ from a "
-                                 f"fresh prefill by {err:.3g} (rel L2)")
-        del r, cache, f_logits, dec, model, xla
+        lm_forms(torch, timings, arch, cfg, r)
+        del r
         torch.cuda.empty_cache()
     return launches, row
 
@@ -1773,8 +1892,7 @@ def families_phase(torch, errs, timings):
         steps = LM_GEN - 1
         timings[f"{arch} serve (init + prefill + decode)"] = wall
         frames = "" if r.frames is None else f" + {cfg.encoder_seq} frames"
-        peak = ("not measured" if r.peak_bytes is None
-                else f"{r.peak_bytes / 2**30:.2f} GiB")
+        peak = gib(r.peak_bytes)
         log(f"  {arch}: {param_count(r.params) / 1e9:.3f} B parameters; "
             f"prefill {LM_BATCH}x{prompt}{frames}: "
             f"{r.prefill_s * 1e3:.1f} ms; decode {steps} steps: "
@@ -1831,6 +1949,316 @@ def families_phase(torch, errs, timings):
         del r, pcut
         torch.cuda.empty_cache()
     return launches
+
+
+# --------------------------------- phase 3i --------------------------------
+
+def lm2_phase(torch, errs, timings):
+    """Serve gemma3_27b through the port's entry point at full size, and
+    llama4_maverick_400b at full width with its depth cut to LLAMA4_LAYERS
+    (through ``serve.serve``: the CLI has no depth flag, nor has the
+    reference's); hold the kernel at every shape the prefill gave it, the
+    "xla" path and a fresh prefill against what it did.  llama4's no-drop
+    decode check runs on batch row 0 only: at capacity E / k its expert
+    buffers for 2079 tokens ([128, 2079, 8192] bf16 a product) fit beside
+    the weights for one row, not for four.  Returns the flash launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import serve
+
+    launches = 0
+    for arch in LM2_ARCHS:
+        cfg = get_config(arch)
+        shapes = {(hq, hkv, win): n for a, _, hq, hkv, win, n in LM2_FLASH
+                  if a == arch}
+        if cfg.num_experts:
+            log(f"  {arch}: depth cut from {cfg.num_layers} to "
+                f"{LLAMA4_LAYERS} layers (full width)")
+            cfg = dataclasses.replace(cfg, num_layers=LLAMA4_LAYERS)
+
+            def run(cfg=cfg):
+                return serve.serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                                   gen_len=LM_GEN, device=DEV)
+        else:
+            def run(arch=arch):
+                return serve.main(["--arch", arch, "--batch", str(LM_BATCH),
+                                   "--prompt-len", str(LM_PROMPT), "--gen",
+                                   str(LM_GEN), "--device", DEV])
+        if sum(shapes.values()) != cfg.num_layers:
+            raise AssertionError(f"{arch}: LM2_FLASH lists "
+                                 f"{sum(shapes.values())} launches a "
+                                 f"prefill, the config {cfg.num_layers}")
+        log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, experts "
+            f"{cfg.num_experts} top-{cfg.top_k}, window {cfg.window} "
+            f"({cfg.local_global} local : 1 global), {cfg.dtype}")
+        r, n, cap = served(torch, timings, arch, cfg, run)
+        log(f"  {arch}: {param_count(r.params) / 1e9:.3f} B parameters "
+            f"({param_count(r.params) * 2 / 1e9:.1f} GB in bf16)")
+        launches += n
+        if n != cfg.num_layers:
+            raise AssertionError(f"{arch}: the prefill launched "
+                                 f"flash_attention {n} times, not once per "
+                                 f"layer ({cfg.num_layers})")
+        seen = set()
+        for (qs, ks, _), (q, k, v, kw) in cap.calls.items():
+            win = kw.get("window")
+            seen.add((qs[1], ks[1], win))
+            if (qs != (LM_BATCH, qs[1], LM_PROMPT, LM2_HEAD_DIM)
+                    or ks != (LM_BATCH, ks[1], LM_PROMPT, LM2_HEAD_DIM)
+                    or q.dtype != cfg.dtype or not kw.get("causal", True)):
+                raise AssertionError(f"{arch}: the kernel was handed {qs} x "
+                                     f"{ks} {q.dtype} {kw}")
+            errs.check(torch, "flash_attention",
+                       kf.flash_attention(q, k, v, **kw),
+                       flash_attention_ref(q, k, v, **kw), False,
+                       f"{arch} {qs}/{ks[1]} w={win}", FLASH_TOL["bfloat16"])
+        if seen != set(shapes):
+            raise AssertionError(f"{arch}: the prefill handed the kernel "
+                                 f"{sorted(seen, key=str)}, LM2_FLASH lists "
+                                 f"{sorted(shapes, key=str)}")
+        del cap
+        lm_forms(torch, timings, arch, cfg, r,
+                 no_drop_rows=1 if cfg.num_experts else None)
+        del r
+        torch.cuda.empty_cache()
+    return launches
+
+
+def state_shapes(torch, cfg):
+    """The trainer's {"params", "opt"} as ``meta`` tensors: the structure
+    and dtypes a restore needs, without storage."""
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.tree import tree_map
+
+    params = param_shapes(get_model(cfg))
+
+    def moments():
+        return tree_map(lambda p: torch.empty(p.shape, dtype=cfg.moment_dtype,
+                                              device="meta"), params)
+    return {"params": params, "opt": AdamWState(
+        torch.empty((), dtype=torch.int32, device="meta"), moments(),
+        moments())}
+
+
+def prune_checkpoints(d, keep_step):
+    """Delete every step directory of the store ``d`` but ``keep_step``'s
+    (disk: each granite train state is 13.9 GB)."""
+    import shutil
+
+    for name in os.listdir(d):
+        if name.startswith("step_") and name != f"step_{keep_step:08d}":
+            shutil.rmtree(os.path.join(d, name))
+
+
+def train_grads_match_cpu(torch, timings):
+    """The trainer's reduced configs of TRAIN_PARITY_ARCHS (f32, remat,
+    sdpa_chunked) on the card against the same weights and batch on the
+    CPU: the loss and every gradient leaf of ``value_and_grad(loss_fn)`` to
+    rtol = atol = 1e-4, the tolerance the CPU tests hold the port to
+    against the reference.  A capacity factor of 0.5 makes the MoE drop
+    pairs, so its scatters' spill rows run on the card, as does the
+    embedding's sorted segment-sum gradient."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import steps, train
+    from repro_torch.models import get_model
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = train.train_config(arch, reduced=True)
+        if cfg.num_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+        model = get_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        batch = SyntheticTokens(cfg.vocab_size, 64, 4, seed=3).batch_at(0)
+        out = []
+        for dev in ("cpu", DEV):
+            loss, grads = steps.value_and_grad(
+                model.loss_fn, tree_map(lambda t: t.to(dev), params),
+                shard_batch(batch, device=dev))
+            out.append((loss.cpu(), [g.cpu() for g in tree_leaves(grads)]))
+        (eloss, egrads), (loss, grads) = out
+        worst = max(float(((g - e).abs() / (1e-4 + 1e-4 * e.abs())).max())
+                    for g, e in zip(grads, egrads))
+        log(f"  {arch} (reduced, f32) loss and {len(grads)} gradient leaves "
+            f"on the card against the CPU: loss {float(loss):.6f} / "
+            f"{float(eloss):.6f}, worst leaf at {worst:.3f} of its "
+            f"tolerance")
+        torch.testing.assert_close(loss, eloss, rtol=1e-4, atol=0)
+        for g, e in zip(grads, egrads):
+            torch.testing.assert_close(g, e, rtol=1e-4, atol=1e-4)
+    timings["trainer gradients, card against CPU"] = \
+        time.perf_counter() - t0
+
+
+def train_phase(torch, timings):
+    """Hold the trainer's gradients on the card against the CPU
+    (``train_grads_match_cpu``), then train TRAIN_ARCH at full width and
+    depth (``train_run``) in a temporary directory that goes when the
+    phase ends, whether it passed or not.  Returns the flash launches of
+    ``train_run``'s serves."""
+    import shutil
+    import tempfile
+
+    train_grads_match_cpu(torch, timings)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        return train_run(torch, timings, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_run(torch, timings, root):
+    """Train TRAIN_ARCH at full width and depth through ``train.main`` for
+    TRAIN_STEPS steps at TRAIN_SEQ, checkpointing every TRAIN_CKPT_EVERY
+    under ``root``; then a RestartableLoop over the same step function,
+    initial parameters and schedule, crashed at TRAIN_FAIL_AT and resumed,
+    must reproduce the uninterrupted run's last losses and final state bit
+    for bit (both runs under torch.use_deterministic_algorithms); then
+    ``serve.main --ckpt-dir`` must give the prefill logits of a serve from
+    the trained parameters in memory, bit for bit.  Returns the flash
+    launches of those two serves."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import serve, train
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import RestartableLoop
+
+    d, d2 = os.path.join(root, "train"), os.path.join(root, "restart")
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        for batch in TRAIN_BATCHES:
+            try:
+                r = train.main(["--arch", TRAIN_ARCH, "--steps",
+                                str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ),
+                                "--batch", str(batch), "--lr", str(TRAIN_LR),
+                                "--ckpt-dir", d, "--ckpt-every",
+                                str(TRAIN_CKPT_EVERY), "--log-every", "1",
+                                "--device", DEV])
+                break
+            except torch.cuda.OutOfMemoryError:
+                log(f"  {TRAIN_ARCH}: batch {batch} x {TRAIN_SEQ} does not "
+                    f"fit the card; cutting the batch")
+                shutil.rmtree(d, ignore_errors=True)
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"{TRAIN_ARCH}: no batch of "
+                                 f"{TRAIN_BATCHES} fits")
+        timings[f"{TRAIN_ARCH} train.main ({TRAIN_STEPS} steps)"] = \
+            time.perf_counter() - t0
+        cfg = r.cfg
+        med = statistics.median(r.step_s[1:])
+        tokens = batch * TRAIN_SEQ
+        log(f"  {TRAIN_ARCH}: global batch 256 x {TRAIN_SEQ} cut to {batch} "
+            f"x {TRAIN_SEQ}; {TRAIN_STEPS} steps; losses "
+            f"{[round(x, 4) for x in r.losses]}")
+        log(f"  {TRAIN_ARCH}: step ms {[round(x * 1e3, 1) for x in r.step_s]}"
+            f"; median {med * 1e3:.1f} ms ({tokens / med:.0f} tokens/s; "
+            f"{r.tokens_per_s:.0f} tokens/s over the run, checkpoints "
+            f"included); peak device memory {gib(r.peak_bytes)}; "
+            f"6 x {cfg.params_active() / 1e9:.3f} B active params x tokens / "
+            f"median step = {6 * cfg.params_active() * tokens / med / 1e12:.1f}"
+            f" TFLOP/s, {6 * cfg.params_active() * tokens / med / BF16_PEAK:.3f}"
+            f" of {BF16_PEAK / 1e12:.0f}")
+        if not all(math.isfinite(x) for x in r.losses):
+            raise AssertionError(f"{TRAIN_ARCH}: non-finite loss {r.losses}")
+        if not r.losses[-1] < r.losses[0]:
+            raise AssertionError(f"{TRAIN_ARCH}: the last loss "
+                                 f"{r.losses[-1]} is not below the first "
+                                 f"{r.losses[0]}")
+        prune_checkpoints(d, TRAIN_STEPS)
+
+        # The same step function, initial parameters and schedule through a
+        # RestartableLoop that crashes and resumes.
+        t0 = time.perf_counter()
+        model = get_model(cfg)
+        step_fn = train.make_train_step(model, TRAIN_STEPS, TRAIN_LR)
+        ds = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
+        losses = {}
+
+        def loop_step(state, step):
+            p, o, m = step_fn(state["params"], state["opt"],
+                              shard_batch(ds.batch_at(step), device=DEV))
+            losses[step] = float(m["loss"])
+            return {"params": p, "opt": o}
+
+        like = state_shapes(torch, cfg)
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        state = {"params": params, "opt": adamw_init(params,
+                                                     cfg.moment_dtype)}
+        del params
+        loop = RestartableLoop(d2, loop_step, like,
+                               ckpt_every=TRAIN_CKPT_EVERY, device=DEV)
+        loop.ckpt.keep = 1   # disk: one 13.9 GB state at a time
+        try:
+            loop.run(state, TRAIN_STEPS, fail_at=TRAIN_FAIL_AT)
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as e:
+            if f"injected failure at step {TRAIN_FAIL_AT}" not in str(e):
+                raise
+        del state
+        resumed = latest_step(d2)
+        losses.clear()
+        loop = RestartableLoop(d2, loop_step, like,
+                               ckpt_every=TRAIN_CKPT_EVERY, device=DEV)
+        loop.ckpt.keep = 1
+        final, done = loop.run(None, TRAIN_STEPS)
+        timings[f"{TRAIN_ARCH} RestartableLoop (crash + resume)"] = \
+            time.perf_counter() - t0
+        want = {s: r.losses[s - r.start_step]
+                for s in range(resumed, TRAIN_STEPS)}
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(final), tree_leaves({"params": r.params,
+                                             "opt": r.opt})))
+        log(f"  restart: crashed at step {TRAIN_FAIL_AT}, resumed from step "
+            f"{resumed}, ran to {done}; losses {losses} against the "
+            f"uninterrupted run's {want}; final params and optimizer state "
+            f"bit-identical: {same}")
+        if resumed != TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY:
+            raise AssertionError(f"resumed from step {resumed}")
+        if losses != want or not same:
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+        del final, loop
+        shutil.rmtree(d2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+
+    # Serve what training saved, and the trained parameters from memory.
+    kf.reset_launches()
+    t0 = time.perf_counter()
+    args = ["--arch", TRAIN_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", "2", "--device", DEV]
+    s = serve.main([*args, "--ckpt-dir", d])
+    mem = serve.serve(get_config(TRAIN_ARCH), batch=LM_BATCH,
+                      prompt_len=LM_PROMPT, gen_len=2, device=DEV,
+                      params=r.params)
+    timings[f"{TRAIN_ARCH} serve from the checkpoint + from memory"] = \
+        time.perf_counter() - t0
+    same = torch.equal(s.prefill_logits, mem.prefill_logits)
+    log(f"  serve --ckpt-dir (step {s.ckpt_step}) against the trained "
+        f"params in memory: prefill logits bit-identical: {same}, tokens "
+        f"equal: {torch.equal(s.tokens, mem.tokens)}")
+    if s.ckpt_step != TRAIN_STEPS or not same:
+        raise AssertionError("serve --ckpt-dir differs from the trained "
+                             "parameters")
+    return kf.LAUNCHES["flash_attention"]
 
 
 # --------------------------------- phase 3e --------------------------------
@@ -2958,6 +3386,10 @@ def sharded_phase(torch, np, timings):
 
 
 def main() -> int:
+    # cuBLAS is deterministic only with a fixed workspace (3i's training
+    # runs under torch.use_deterministic_algorithms); set before the first
+    # cuBLAS call.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3013,6 +3445,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sweep_flash(torch, errs)
     family_rows = family_flash_shapes(torch, errs)
+    lm2_rows = lm2_flash_shapes(torch, errs)
     timings["kernels"] = time.perf_counter() - t0
 
     log("== phase 3a: main path (GraphService)")
@@ -3073,6 +3506,14 @@ def main() -> int:
     launches["flash_attention"] += families_phase(torch, errs, timings)
     flash_row["encdec"] = family_rows
     timings["LM families phase total"] = time.perf_counter() - t0
+
+    log(f"== phase 3i: LM serving ({LM2_ARCHS[0]}, {LM2_ARCHS[1]} at "
+        f"{LLAMA4_LAYERS} layers) and training ({TRAIN_ARCH})")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += lm2_phase(torch, errs, timings)
+    launches["flash_attention"] += train_phase(torch, timings)
+    flash_row["gemma3_llama4"] = lm2_rows
+    timings["LM 3i phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

@@ -18,12 +18,18 @@ field names in both packages, so either package restores a snapshot the
 other wrote.
 
 Leaves are tensors (or numpy arrays); a restore builds tensors on the
-device the caller names, ``"cuda"`` by default.  The reference's
+device the caller names, ``"cuda"`` by default, and reads only the leaves
+the caller's tree names.  bfloat16 and float8_e5m2 leaves, which numpy has
+no type for, are written as the reference writes them (its ``ml_dtypes``
+arrays): the raw bits under the ``.npy`` descr ``'<V2'`` / ``'<f1'``, and
+``"bfloat16"`` / ``"float8_e5m2"`` as the manifest's dtype; they are read
+back as raw bits and viewed as the torch dtype.  The reference's
 ``mesh=``/``specs=`` resharding onto a graph mesh is not ported yet
-(ROADMAP.md, queue 1, item 2).
+(ROADMAP.md, queue 1, slice 3).
 """
 from __future__ import annotations
 
+import ast
 import hashlib
 import json
 import os
@@ -75,9 +81,44 @@ def _rebuild(tree_like, leaf_fn, path=()):
     return leaf_fn(_path_str(path), tree_like)
 
 
-def _host(leaf) -> np.ndarray:
+# torch dtype: (manifest dtype, .npy descr, numpy type of the raw bits, torch
+# integer type of the same width) for the leaf dtypes numpy cannot hold.
+RAW_DTYPES = {
+    torch.bfloat16: ("bfloat16", "<V2", np.uint16, torch.int16),
+    torch.float8_e5m2: ("float8_e5m2", "<f1", np.uint8, torch.int8),
+}
+_RAW_BY_NAME = {v[0]: k for k, v in RAW_DTYPES.items()}
+
+
+class RawLeaf:
+    """The host copy of a bfloat16 / float8 leaf: its raw bits and the
+    torch dtype they encode."""
+    __slots__ = ("bits", "dtype")
+
+    def __init__(self, bits: np.ndarray, dtype: torch.dtype):
+        self.bits, self.dtype = bits, dtype
+
+    @property
+    def shape(self):
+        return self.bits.shape
+
+    def tensor(self) -> torch.Tensor:
+        """The leaf as a CPU tensor of its dtype (no copy)."""
+        itype = RAW_DTYPES[self.dtype][3]
+        return torch.from_numpy(self.bits.view(
+            torch.empty(0, dtype=itype).numpy().dtype)).view(self.dtype)
+
+
+def _host(leaf):
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype in RAW_DTYPES:
+            _, _, bits, itype = RAW_DTYPES[t.dtype]
+            return RawLeaf(t.contiguous().view(itype).numpy().view(bits),
+                           t.dtype)
+        return t.numpy()
+    if isinstance(leaf, RawLeaf):
+        return leaf
     return np.asarray(leaf)
 
 
@@ -85,6 +126,47 @@ def _numpy_dtype(like) -> np.dtype:
     if isinstance(like, torch.Tensor):
         return torch.empty(0, dtype=like.dtype).numpy().dtype
     return np.dtype(like.dtype)
+
+
+def _save_leaf(path: str, arr) -> str:
+    """Write one leaf as ``.npy``; returns the manifest's dtype name."""
+    if not isinstance(arr, RawLeaf):
+        np.save(path, arr)
+        return str(arr.dtype)
+    name, descr, _, _ = RAW_DTYPES[arr.dtype]
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": descr, "fortran_order": False, "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr.bits).tobytes())
+    return name
+
+
+def _load_leaf(path: str, entry: dict):
+    """A leaf as ``_save_leaf`` (or the reference) wrote it: a numpy array,
+    or a ``RawLeaf`` for a dtype numpy cannot hold."""
+    dtype = _RAW_BY_NAME.get(entry["dtype"])
+    if dtype is None:
+        return np.load(path)
+    with open(path, "rb") as f:
+        version = np.lib.format.read_magic(f)
+        size = int.from_bytes(f.read(2 if version == (1, 0) else 4), "little")
+        header = ast.literal_eval(f.read(size).decode("latin1"))
+        bits = np.fromfile(f, dtype=RAW_DTYPES[dtype][2])
+    return RawLeaf(bits.reshape(header["shape"]), dtype)
+
+
+def _bits(arr) -> np.ndarray:
+    return arr.bits if isinstance(arr, RawLeaf) else arr
+
+
+def _tensor(arr, like, dev) -> torch.Tensor:
+    """A loaded leaf as a tensor of ``like``'s dtype on ``dev``."""
+    if isinstance(arr, RawLeaf):
+        return arr.tensor().to(device=dev, dtype=like.dtype)
+    if isinstance(like, torch.Tensor) and like.dtype in RAW_DTYPES:
+        return torch.from_numpy(arr).to(device=dev, dtype=like.dtype)
+    return torch.from_numpy(arr.astype(_numpy_dtype(like),
+                                       copy=False)).to(dev)
 
 
 def _checksum(arr: np.ndarray) -> str:
@@ -97,7 +179,8 @@ def like_from_manifest(cls, manifest: dict):
     needs when only the snapshot knows the capacities."""
     def like(name):
         entry = manifest["leaves"][name]
-        dtype = torch.from_numpy(np.empty(0, entry["dtype"])).dtype
+        dtype = _RAW_BY_NAME.get(entry["dtype"]) or torch.from_numpy(
+            np.empty(0, entry["dtype"])).dtype
         return torch.empty(tuple(entry["shape"]), dtype=dtype, device="meta")
     return cls(*(like(name) for name in cls._fields))
 
@@ -120,10 +203,10 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, version: int,
         name = _path_str(path)
         arr = _host(leaf)
         fn = name.replace("/", ".") + ".npy"
-        np.save(os.path.join(d, fn), arr)
-        entry = {"file": fn, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+        dtype = _save_leaf(os.path.join(d, fn), arr)
+        entry = {"file": fn, "shape": list(arr.shape), "dtype": dtype}
         if verify:
-            entry["sha1"] = _checksum(arr)
+            entry["sha1"] = _checksum(_bits(arr))
         manifest["leaves"][name] = entry
     # manifest last + atomic rename = the commit point (linearization point)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -164,23 +247,27 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     ``tree_like`` supplies the structure and the dtypes (tensors, ``meta``
     tensors as :func:`like_from_manifest` builds, or numpy arrays); every
     leaf comes back as a tensor on ``device`` (default ``"cuda"``, which
-    raises without CUDA).  ``mesh``/``specs`` are not ported yet.
+    raises without CUDA).  Only the leaves ``tree_like`` names are read.
+    ``mesh``/``specs`` are not ported yet.
     """
     from repro_torch.core.graph_state import resolve_device
 
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "restore_checkpoint(mesh=, specs=) is not ported yet "
-            "(ROADMAP.md, queue 1, item 2)")
+            "(ROADMAP.md, queue 1, slice 3)")
     dev = resolve_device(device)
+    names = [_path_str(path) for path, _ in _leaves(tree_like)]
     for _ in range(max_retries):
         m1 = read_manifest(ckpt_dir, step)
         d = os.path.join(ckpt_dir, f"step_{step:08d}")
         loaded = {}
         ok = True
-        for name, entry in m1["leaves"].items():
-            arr = np.load(os.path.join(d, entry["file"]))
-            if verify and "sha1" in entry and _checksum(arr) != entry["sha1"]:
+        for name in names:
+            entry = m1["leaves"][name]
+            arr = _load_leaf(os.path.join(d, entry["file"]), entry)
+            if verify and "sha1" in entry and (_checksum(_bits(arr))
+                                               != entry["sha1"]):
                 ok = False          # leaf changed under us (ecnt mismatch)
                 break
             loaded[name] = arr
@@ -190,8 +277,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     else:
         raise RuntimeError("checkpoint kept changing during restore")
 
-    return _rebuild(tree_like, lambda name, like: torch.tensor(
-        loaded[name].astype(_numpy_dtype(like)), device=dev))
+    return _rebuild(tree_like,
+                    lambda name, like: _tensor(loaded[name], like, dev))
 
 
 class Checkpointer:

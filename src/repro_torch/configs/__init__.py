@@ -3,9 +3,7 @@
 ``get_config(name)`` returns the full published config; ``reduced(cfg)``
 shrinks it for CPU tests (same family and topology, tiny dims).  The port
 keeps its own copies of the config files: it imports nothing of the
-reference package.  The decoder-only (dense, MoE, VLM), SSM, hybrid and
-audio encoder-decoder families are ported; gemma3_27b and
-llama4_maverick_400b wait for their configs (ROADMAP.md, queue 1, item 3).
+reference package.  Every architecture of ``ARCHS`` is ported.
 """
 from __future__ import annotations
 
@@ -29,9 +27,8 @@ ARCHS = [
     "zamba2_12b",
 ]
 
-# The architectures with a config file (and a model) in the port.
-PORTED = ("mamba2_780m", "qwen3_32b", "codeqwen15_7b", "mistral_nemo_12b",
-          "granite_moe_1b", "qwen2_vl_72b", "whisper_large_v3", "zamba2_12b")
+# The architectures with a config file (and a model) in the port: all.
+PORTED = tuple(ARCHS)
 
 # shape grid assigned to the LM family (seq_len, global_batch, kind)
 SHAPES = {
@@ -48,10 +45,8 @@ LONG_OK_FAMILIES = ("ssm", "hybrid")
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "")
     if name not in PORTED:
-        raise ValueError(
-            f"repro_torch has no config {name!r}: the port serves {PORTED}; "
-            f"the other architectures wait for their configs (ROADMAP.md, "
-            f"queue 1, item 3)")
+        raise ValueError(f"repro_torch has no config {name!r}: the port "
+                         f"serves {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
 
 

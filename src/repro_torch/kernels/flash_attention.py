@@ -11,7 +11,10 @@ in place, and it masks the ragged edges itself.  The bf16 body loads by
 TMA, which takes a base address and strides that are multiples of 16
 bytes; ``tma_strides`` refuses the rest.  A CPU tensor runs the plain
 version, ``ref.flash_attention_ref``.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  The kernel has no backward:
+on CUDA, a call that autograd would have to differentiate (grad mode on
+and q, k or v requiring grad) raises instead of returning a result cut off
+from the graph; training runs the chunked attention (``attn_impl="xla"``).
 
 ``LAUNCHES`` counts kernel launches; only a launch adds to it.
 """
@@ -121,6 +124,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not on_cuda(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                                    window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, and q, k or v "
+            "requires grad; training runs attn_impl=\"xla\" (the chunked "
+            "attention), or call the kernel under torch.no_grad()")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else float(d) ** -0.5

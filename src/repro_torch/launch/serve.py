@@ -11,9 +11,10 @@ frontend's output from one seeded 2, as the reference draws them.  The
 caches are kept in the parameters' dtype.  Prefill runs the flash kernel
 on every attention layer; decode runs the chunked attention over the
 cache.  ``--device`` defaults to ``cuda`` and raises where there is none;
-``--device cpu`` runs the plain versions.  Serving from a checkpoint
-(``--ckpt-dir``) waits for the port of ``repro.checkpoint`` (ROADMAP.md,
-queue 1, item 3).
+``--device cpu`` runs the plain versions.  ``--ckpt-dir`` serves the
+parameters of the latest checkpoint there (what ``launch/train.py``
+saved), read through the versioned store's double-collect validation onto
+the serving device.  Serving runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import PORTED, get_config, reduced as make_reduced
 from repro_torch.core.graph_state import resolve_device
-from repro_torch.models import ModelConfig, get_model
+from repro_torch.models import ModelConfig, get_model, param_shapes
 
 
 @dataclasses.dataclass
@@ -41,6 +43,7 @@ class ServeResult:
     prefill_s: float
     decode_s: float                # all gen - 1 decode steps
     peak_bytes: Optional[int]      # device memory high-water mark (CUDA)
+    ckpt_step: Optional[int] = None  # the checkpoint's step (--ckpt-dir)
 
 
 def _sync(device: torch.device) -> None:
@@ -56,6 +59,7 @@ def _next(logits: torch.Tensor, temperature: float,
     return torch.argmax(logits[:, -1], dim=-1)[:, None]
 
 
+@torch.no_grad()
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
           temperature: float = 0.0, device="cuda", seed: int = 0,
           params: Optional[dict] = None) -> ServeResult:
@@ -111,23 +115,26 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: serving from a checkpoint waits "
-                         "for the port of repro.checkpoint")
+                    help="serve weights from a (possibly live) checkpoint")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: serving from a checkpoint is "
-                                  "not ported yet (ROADMAP.md, queue 1, "
-                                  "item 3)")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
+    params = step = None
+    if args.ckpt_dir:
+        step, restored = Checkpointer(args.ckpt_dir).restore_latest(
+            {"params": param_shapes(get_model(cfg))}, device=args.device)
+        if restored is not None:
+            params = restored["params"]
+            print(f"[serve] loaded validated snapshot @ step {step}")
     r = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
               gen_len=args.gen, temperature=args.temperature,
-              device=args.device)
+              device=args.device, params=params)
+    r.ckpt_step = step
     steps = max(args.gen - 1, 1)
     print(f"[serve] {cfg.name} on {args.device}: prefill {args.prompt_len} "
           f"toks x{args.batch}: {r.prefill_s * 1e3:.1f} ms; decode "

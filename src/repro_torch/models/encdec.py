@@ -14,7 +14,9 @@ kernel: the encoder's self-attention and the decoder's cross-attention non
 causally (the whole encoder K/V), the decoder's self-attention causally on
 the filled cache prefix.  Caches are written in place, apart from the cross
 cache, which ``prefill`` rebuilds from the frames it is given.  ``loss_fn``
-waits for training (ROADMAP.md, queue 1, item 3).
+is the reference's next-token cross-entropy of the decoder over
+``batch["frames"]``; the encoder's layers, and the decoder's without a
+cache, are rematerialised in the backward when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -60,11 +62,28 @@ def encode(params: dict, frames: torch.Tensor,
     """frames: [B, encoder_seq, d] (the stubbed frontend's output)."""
     h = frames.to(cfg.dtype)
     for lp in params["encoder"]:
-        a, _ = L.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                           cfg, causal=False, use_rope=True)
-        h = h + a
-        h = h + L.mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+        h = L.remat(cfg, _enc_layer, lp, h, cfg)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    a, _ = L.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                       cfg, causal=False, use_rope=True)
+    h = h + a
+    return h + L.mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+
+def _dec_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig, sc, cc,
+               kv_x) -> torch.Tensor:
+    """One decoder layer: self-attention (through ``sc``), cross-attention
+    over ``kv_x`` (``"cached"``: ``cc``), MLP."""
+    a, _ = L.attention(lp["self"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                       cfg, cache=sc)
+    h = h + a
+    c, _ = L.attention(lp["cross"], L.rms_norm(h, lp["ln2"], cfg.norm_eps),
+                       cfg, kv_x=kv_x, cache=cc, causal=False, use_rope=False)
+    h = h + c
+    return h + L.mlp(lp["mlp"], L.rms_norm(h, lp["ln3"], cfg.norm_eps))
 
 
 def decode(params: dict, tokens: torch.Tensor,
@@ -77,24 +96,25 @@ def decode(params: dict, tokens: torch.Tensor,
     h = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["decoder"]):
         if caches is None:
-            sc, cc, kv_x = None, None, enc_out
-        else:
-            sc = {"k": caches["self"]["k"][i], "v": caches["self"]["v"][i],
-                  "idx": caches["self"]["idx"]}
-            cc = {"k": caches["cross"]["k"][i], "v": caches["cross"]["v"][i]}
-            kv_x = "cached"
-        a, _ = L.attention(lp["self"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                           cfg, cache=sc)
-        h = h + a
-        c, _ = L.attention(lp["cross"],
-                           L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
-                           kv_x=kv_x, cache=cc, causal=False, use_rope=False)
-        h = h + c
-        h = h + L.mlp(lp["mlp"], L.rms_norm(h, lp["ln3"], cfg.norm_eps))
+            h = L.remat(cfg, _dec_layer, lp, h, cfg, None, None, enc_out)
+            continue
+        sc = {"k": caches["self"]["k"][i], "v": caches["self"]["v"][i],
+              "idx": caches["self"]["idx"]}
+        cc = {"k": caches["cross"]["k"][i], "v": caches["cross"]["v"][i]}
+        h = _dec_layer(lp, h, cfg, sc, cc, "cached")
     if caches is not None:
         sc = caches["self"]
         caches = {**caches, "self": {**sc, "idx": sc["idx"] + h.shape[1]}}
     return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S] decoded over
+    the encoder's output for ``batch["frames"]`` [B, encoder_seq, d]."""
+    tokens = batch["tokens"]
+    enc_out = encode(params, batch["frames"], cfg)
+    h, _ = decode(params, tokens[:, :-1], enc_out, cfg)
+    return L.next_token_loss(params["lm_head"], h, tokens, cfg)
 
 
 def build_cross_cache(params: dict, enc_out: torch.Tensor,

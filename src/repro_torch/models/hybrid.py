@@ -11,8 +11,10 @@ attention and LoRA adapters per invocation).
 
 Each invocation keeps its own KV cache (``attn.k/v [ns, B, KV, max_len,
 D]``) and one ``idx`` for all of them: the invocations advance together, as
-the transformer's layers do.  Caches are written in place.  ``loss_fn``
-waits for training (ROADMAP.md, queue 1, item 3).
+the transformer's layers do.  Caches are written in place.  ``loss_fn`` is
+the reference's next-token cross-entropy; without a cache, ``forward``
+rematerialises each super-block (its Mamba2 layers and the shared block's
+invocation) in the backward when ``cfg.remat``, as the reference does.
 """
 from __future__ import annotations
 
@@ -60,6 +62,15 @@ def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
     return h + L.mlp(sp["mlp"], L.rms_norm(h, sp["ln2"], cfg.norm_eps))
 
 
+def _super_block(block: list, sp: dict, h: torch.Tensor, cfg: ModelConfig,
+                 positions) -> torch.Tensor:
+    """A super-block without caches: its Mamba2 layers, then the shared
+    block."""
+    for lp in block:
+        h = S.residual_block(lp, h, cfg)
+    return _shared_block(sp, h, cfg, None, positions)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None):
@@ -72,11 +83,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     ssm_c, tail_c = (None, None) if caches is None else (caches["ssm"],
                                                           caches["tail"])
     for j, block in enumerate(params["blocks"]):
+        if caches is None:
+            h = L.remat(cfg, _super_block, block, sp, h, cfg, positions)
+            continue
         for i, lp in enumerate(block):
             h = S.residual_block(lp, h, cfg, S.layer_cache(ssm_c, j, i))
-        attn_c = None if caches is None else {
-            "k": caches["attn"]["k"][j], "v": caches["attn"]["v"][j],
-            "idx": caches["attn"]["idx"]}
+        attn_c = {"k": caches["attn"]["k"][j], "v": caches["attn"]["v"][j],
+                  "idx": caches["attn"]["idx"]}
         h = _shared_block(sp, h, cfg, attn_c, positions)
     for i, lp in enumerate(params.get("tail", ())):
         h = S.residual_block(lp, h, cfg, S.layer_cache(tail_c, i))
@@ -85,6 +98,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         caches = {**caches, "attn": {**attn,
                                      "idx": attn["idx"] + h.shape[1]}}
     return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S]."""
+    tokens = batch["tokens"]
+    h, _ = forward(params, tokens[:, :-1], cfg)
+    return L.next_token_loss(params["lm_head"], h, tokens, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -1,5 +1,5 @@
-"""Functional layer library, forward only (port of ``repro.models.layers``):
-norms, RoPE / M-RoPE, GQA attention, MLP, embeddings.
+"""Functional layer library (port of ``repro.models.layers``): norms, RoPE /
+M-RoPE, GQA attention, MLP, embeddings and the chunked cross-entropy.
 
 Parameters are plain dicts of tensors, as the reference's pytrees.  The
 reference's sharding constraints are gone: one device needs none.  The
@@ -14,20 +14,60 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 
 from .config import ModelConfig
 
 
+# Largest float32 draw ``_init`` makes at once.
+INIT_DRAW_BYTES = 1 << 28
+
+
 def _init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
     """Normal(0, 1) * scale in float32 on ``gen``'s device, then cast;
-    ``scale`` defaults to fan_in ** -0.5 (``repro.models.layers._init``)."""
+    ``scale`` defaults to fan_in ** -0.5 (``repro.models.layers._init``).
+
+    A tensor whose float32 draw would exceed ``INIT_DRAW_BYTES`` is drawn
+    in blocks of whole slices along its leading axis, each cast into the
+    result, so the float32 transient is one block, not the tensor (an
+    expert stack of llama4 is 21.5 GB in float32)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(scale).to(dtype)
+    slice_bytes = 4 * math.prod(shape[1:])
+    if len(shape) < 2 or shape[0] * slice_bytes <= INIT_DRAW_BYTES:
+        x = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, INIT_DRAW_BYTES // slice_bytes)
+    for r0 in range(0, shape[0], rows):
+        n = min(rows, shape[0] - r0)
+        x = torch.randn((n, *shape[1:]), generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        out[r0:r0 + n] = x.mul_(scale)
+    return out
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, rematerialised in the backward when ``cfg.remat`` and
+    autograd is on (the reference's ``jax.checkpoint`` of a layer body):
+    the forward keeps the block's inputs only."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def next_token_loss(head: torch.Tensor, h: torch.Tensor,
+                    tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of the hidden states ``h`` [B, S-1, d]
+    of ``tokens[:, :-1]``: targets ``tokens[:, 1:]``, token id 0 masked
+    out (every family's ``loss_fn`` in the reference)."""
+    targets = tokens[:, 1:]
+    mask = (targets != 0).float()
+    nll, cnt = unembed_chunked_xent(head, h, targets, mask, cfg.xent_chunk)
+    return nll / torch.clamp(cnt, min=1.0)
 
 
 # ------------------------------- norms -----------------------------------
@@ -109,31 +149,58 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query row i sits at position ``q_offset + i`` and sees key j iff
     ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``.
     Scores in float32; the probabilities are cast to v's dtype for the
-    second product, as in the reference.
+    second product, as in the reference.  A chunk reads only the keys some
+    of its rows can see (causal: up to its last row; windowed: from its
+    first row's window on): the rest would be masked to exact zeros.
+    Under autograd with more than one chunk, each chunk is rematerialised
+    in the backward (the reference's ``jax.checkpoint`` of its scan body),
+    so the backward holds one chunk's float32 scores, not the whole [S,
+    Skv] matrix.
     """
-    sq, d0 = q.shape[2], q.shape[3]
-    skv = k.shape[2]
-    scale = d0 ** -0.5
-    kpos = torch.arange(skv, device=q.device)
+    sq, skv = q.shape[2], k.shape[2]
     kt = k.float().transpose(-1, -2)
+    remat = sq > chunk and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    # A row sees no key (its softmax is NaN, zeroed as in the reference)
+    # only where a window ends before the keys do: causal rows see key 0 or
+    # themselves, windowless non-causal rows every key.
+    empty_rows = window is not None and q_offset + sq - window >= skv
     out = []
     for s0 in range(0, sq, chunk):
-        qc = q[:, :, s0:s0 + chunk]
-        qpos = q_offset + s0 + torch.arange(qc.shape[2], device=q.device)
-        s = (qc.float() @ kt) * scale
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        mask = torch.ones((qc.shape[2], skv), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > qpos[:, None] - window
-        s = s.masked_fill(~mask, -math.inf)
-        p = torch.softmax(s, dim=-1)
-        p = torch.where(torch.isnan(p), 0.0, p)
-        out.append(p.to(v.dtype) @ v)
+        q0 = q_offset + s0
+        hi = min(skv, q0 + min(chunk, sq - s0)) if causal else skv
+        lo = min(hi, 0 if window is None else max(0, q0 - window + 1))
+        args = (q[:, :, s0:s0 + chunk], kt[..., lo:hi], v[:, :, lo:hi], q0,
+                lo, causal, window, softcap, empty_rows)
+        out.append(checkpoint(_attend, *args, use_reentrant=False) if remat
+                   else _attend(*args))
     return torch.cat(out, dim=2) if len(out) > 1 else out[0]
+
+
+def _attend(qc, kt, v, q0: int, k0: int, causal: bool,
+            window: Optional[int], softcap: float,
+            empty_rows: bool) -> torch.Tensor:
+    """One chunk of ``sdpa_chunked``: queries at positions q0, q0 + 1, ...
+    against the transposed float32 keys ``kt`` at positions k0, k0 + 1,
+    ..."""
+    skv = kt.shape[-1]
+    kpos = k0 + torch.arange(skv, device=qc.device)
+    qpos = q0 + torch.arange(qc.shape[2], device=qc.device)
+    # In place on the fresh [B, H, chunk, Skv] float32 scores: neither the
+    # product's nor the scaling's backward reads its output.
+    s = (qc.float() @ kt).mul_(qc.shape[3] ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = torch.ones((qc.shape[2], skv), dtype=torch.bool, device=qc.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = s.masked_fill_(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    if empty_rows:
+        p = torch.where(torch.isnan(p), 0.0, p)
+    return p.to(v.dtype) @ v
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -254,8 +321,65 @@ def init_unembed(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
     return _init(gen, (cfg.d_model, cfg.vocab_size), cfg.dtype)
 
 
+class _Embed(torch.autograd.Function):
+    """``table[tokens]`` whose gradient sums in float32 and is cast to the
+    table's dtype once (the reference's custom VJP, ``layers.embed``)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        # Deterministic: the rows of each token id, in token order (a stable
+        # sort), summed by a segment reduction.  An accumulating scatter
+        # (index_put_, index_add_) sums in atomics order on CUDA, and
+        # Zipfian ids (a quarter of them one id) serialise its atomics.
+        (tokens,) = ctx.saved_tensors
+        ids, order = torch.sort(tokens.reshape(-1).long(), stable=True)
+        uniq, counts = torch.unique_consecutive(ids, return_counts=True)
+        rows = g.reshape(-1, g.shape[-1])[order].float()
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                          device=g.device)
+        acc[uniq] = torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+        return acc.to(ctx.table_dtype), None
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return _Embed.apply(table, tokens)
+
+
+def unembed_chunked_xent(head: torch.Tensor, h: torch.Tensor,
+                         targets: torch.Tensor, mask: torch.Tensor,
+                         chunk: int):
+    """Cross-entropy without materialising [B, S, vocab] logits.  Returns
+    ``(sum of nll over the masked positions, sum of the mask)``, float32.
+
+    A loop over ``chunk`` positions at a time; each chunk's float32 logits
+    give ``logsumexp - gold logit``.  Under autograd each chunk is
+    rematerialised in the backward (the reference's checkpointed scan), so
+    the backward holds one chunk's [B, chunk, V] logits."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or head.requires_grad)
+    nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, s, chunk):
+        args = (head, h[:, s0:s0 + chunk], targets[:, s0:s0 + chunk],
+                mask[:, s0:s0 + chunk])
+        n, c = (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
+                else _xent_chunk(*args))
+        nll, cnt = nll + n, cnt + c
+    return nll, cnt
+
+
+def _xent_chunk(head, hc, tc, mc):
+    logits = hc.float() @ head.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
 
 
 def unembed_logits(head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

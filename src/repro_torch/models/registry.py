@@ -2,6 +2,7 @@
 
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    loss = model.loss_fn(params, batch)      # batch = {"tokens": [B, S], ...}
     cache = model.init_cache(batch, max_len)
     logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, tokens, cache)
@@ -15,6 +16,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from . import encdec, hybrid, ssm, transformer
 from .config import ModelConfig
@@ -24,6 +26,7 @@ from .config import ModelConfig
 class Model:
     cfg: ModelConfig
     init: Callable           # (generator) -> params on its device
+    loss_fn: Callable        # (params, batch) -> scalar float32 loss
     prefill: Callable        # (params, tokens, cache, **kw) -> (logits, cache)
     decode_step: Callable    # (params, tokens, cache, **kw) -> (logits, cache)
     init_cache: Callable     # (batch, max_len, dtype=, device=) -> cache
@@ -43,6 +46,7 @@ def get_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: mod.init(gen, cfg),
+        loss_fn=lambda params, batch: mod.loss_fn(params, batch, cfg),
         prefill=lambda params, tokens, cache, **kw: mod.prefill(
             params, tokens, cfg, cache, **kw),
         decode_step=lambda params, tokens, cache, **kw: mod.decode_step(
@@ -50,3 +54,21 @@ def get_model(cfg: ModelConfig) -> Model:
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, device="cuda":
             mod.init_cache(cfg, batch, max_len, dtype, device),
     )
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call with a ``device=`` builds on ``meta`` instead."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def param_shapes(model: Model) -> dict:
+    """The parameter tree ``model.init`` builds, as ``meta`` tensors (shapes
+    and dtypes, no storage): the reference's ``jax.eval_shape(model.init,
+    key)``, e.g. the ``tree_like`` of a checkpoint restore."""
+    with _OnMeta():
+        return model.init(torch.Generator())

@@ -17,8 +17,9 @@ cache's dtype.  Mixed operands of a product are promoted first, as JAX's
 einsum promotes them (``_ein``).
 
 The cache, ``conv`` [L, B, K-1, C] and ``ssd`` [L, B, H, Pd, N], is written
-in place, as the transformer's KV cache is.  ``loss_fn`` waits for
-training (ROADMAP.md, queue 1, item 3).
+in place, as the transformer's KV cache is.  ``loss_fn`` is the reference's
+next-token cross-entropy; without a cache, ``forward`` rematerialises each
+layer in the backward when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -109,14 +110,20 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     # Intra-chunk quadratic term (the "attention-like" dual form).  The
     # upper triangle is set to -inf before the exp, so it decays to 0 and
-    # never meets an overflowed exp.  In place: at full width each of these
-    # [b, nc, l, l, h] float32 tensors is about 200 MB.
-    causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=x.device).tril()
+    # never meets an overflowed exp.  In place where autograd does not
+    # track it (serving): at full width each of these [b, nc, l, l, h]
+    # float32 tensors is about 200 MB.  Autograd needs the exp's output
+    # as it was, so training takes the out-of-place form.
+    upper = ~torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()[None, None, :, :, None]
     att = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [b,nc,i,j,h]
-    att.masked_fill_(~causal[None, None, :, :, None], -math.inf).exp_()
     cb = _ein("bcin,bcjn->bcij", cc, bc)
-    att.mul_(cb[..., None]).mul_(dtc[:, :, None, :, :])
+    if att.requires_grad:
+        att = (torch.exp(att.masked_fill(upper, -math.inf))
+               * cb[..., None] * dtc[:, :, None, :, :])
+    else:
+        att.masked_fill_(upper, -math.inf).exp_()
+        att.mul_(cb[..., None]).mul_(dtc[:, :, None, :, :])
     y_intra = _ein("bcijh,bcjhp->bcihp", att.to(x.dtype), xc)
     del att
 
@@ -238,8 +245,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     state is written into them in place."""
     h = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
-        h = residual_block(lp, h, cfg, layer_cache(caches, i))
+        if caches is None:
+            h = L.remat(cfg, residual_block, lp, h, cfg)
+        else:
+            h = residual_block(lp, h, cfg, layer_cache(caches, i))
     return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S]."""
+    tokens = batch["tokens"]
+    h, _ = forward(params, tokens[:, :-1], cfg)
+    return L.next_token_loss(params["lm_head"], h, tokens, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -4,8 +4,10 @@
 Layers are a Python list run by a Python loop; per-layer windows are
 Python ints (or None), so a prefill reaches the flash kernel on every
 layer.  The KV cache is one tensor per K and V, stacked over layers as in
-the reference, and is written in place.  ``loss_fn`` waits for training
-(ROADMAP.md, queue 1, item 3).
+the reference, and is written in place.  ``loss_fn`` is the reference's:
+the next-token cross-entropy plus 0.01 x the MoE load-balance loss;
+without a cache, ``forward`` rematerialises each layer in the backward
+when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -47,30 +49,51 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _layer_apply(lp, h, cfg, window, cache, positions):
-    """One block; the attention writes its K/V rows into ``cache`` in place."""
+    """One block; the attention writes its K/V rows into ``cache`` in
+    place.  Returns (h, the MoE load-balance loss, or 0.0 for a dense
+    model or with a cache: serving never reads it)."""
     a, _ = L.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
                        cfg, positions=positions, cache=cache, window=window)
     h = h + a
     hn = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-    f = moe(lp["ffn"], hn, cfg) if cfg.num_experts else L.mlp(lp["ffn"], hn)
-    return h + f
+    if cfg.num_experts:
+        f, aux = moe(lp["ffn"], hn, cfg, with_aux=cache is None)
+    else:
+        f, aux = L.mlp(lp["ffn"], hn), None
+    return h + f, 0.0 if aux is None else aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None):
-    """Returns ``(hidden [B,S,d], caches)``: with ``caches``, each layer's
-    K/V rows are written into them in place and their ``idx`` advances by
-    S; without, ``None``."""
+    """Returns ``(hidden [B,S,d], caches, aux)``: with ``caches``, each
+    layer's K/V rows are written into them in place and their ``idx``
+    advances by S; without, ``None``.  ``aux`` sums the layers' MoE
+    load-balance losses (0.0 for a dense model, and with ``caches``)."""
     h = L.embed(params["embed"], tokens)
     windows = layer_windows(cfg)
+    aux = 0.0
     for i, (lp, win) in enumerate(zip(params["layers"], windows)):
-        cache = None if caches is None else {
-            "k": caches["k"][i], "v": caches["v"][i], "idx": caches["idx"]}
-        h = _layer_apply(lp, h, cfg, win, cache, positions)
+        if caches is None:
+            h, a = L.remat(cfg, _layer_apply, lp, h, cfg, win, None,
+                           positions)
+        else:
+            cache = {"k": caches["k"][i], "v": caches["v"][i],
+                     "idx": caches["idx"]}
+            h, a = _layer_apply(lp, h, cfg, win, cache, positions)
+        aux = aux + a
     if caches is not None:
         caches = {**caches, "idx": caches["idx"] + h.shape[1]}
-    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+    return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches, aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` [B, S] (M-RoPE
+    ``positions`` [3, B, S-1] optional) plus 0.01 x the load-balance loss."""
+    tokens = batch["tokens"]
+    h, _, aux = forward(params, tokens[:, :-1], cfg,
+                        positions=batch.get("positions"))
+    return L.next_token_loss(params["lm_head"], h, tokens, cfg) + 0.01 * aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -89,8 +112,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             cache: dict, positions: Optional[torch.Tensor] = None):
     """Run the prompt through the model, filling the cache.
     Returns (last-token logits [B, 1, V] in float32, cache)."""
-    h, cache = forward(params, tokens, cfg, caches=cache,
-                       positions=positions)
+    h, cache, _ = forward(params, tokens, cfg, caches=cache,
+                          positions=positions)
     return L.unembed_logits(params["lm_head"], h[:, -1:, :]), cache
 
 

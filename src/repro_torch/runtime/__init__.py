@@ -1,1 +1,1 @@
-from .fault_tolerance import HeartbeatMonitor  # noqa: F401
+from .fault_tolerance import HeartbeatMonitor, RestartableLoop  # noqa: F401

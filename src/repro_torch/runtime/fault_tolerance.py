@@ -1,5 +1,5 @@
-"""Heartbeat / straggler detection (port of the ``HeartbeatMonitor`` of
-``repro.runtime.fault_tolerance``).
+"""Fault tolerance: heartbeat / straggler detection and the restartable
+step loop (port of ``repro.runtime.fault_tolerance``).
 
 ``HeartbeatMonitor`` keeps a rolling window of latencies; a measurement
 slower than ``factor`` x the rolling median raises a straggler flag.  Its
@@ -7,17 +7,23 @@ consumer is the serving stack: pass one as ``StreamScheduler(monitor=...)``
 (or the ``monitor=`` keyword of ``GraphService``) and it watches **commit
 latency** -- a slow ``apply_ops``/ring append flags the commit, bumps the
 ``scheduler_stragglers`` counter, and annotates the commit's trace span
-with ``straggler=True``.
+with ``straggler=True``.  The trainer (``launch/train.py``) wires the same
+monitor around its step function.
 
-The reference's ``RestartableLoop`` wraps a training step with checkpoint
-and restart; it waits for the port's training loop.
+``RestartableLoop`` wraps any step function with periodic asynchronous
+checkpoints and resume-from-latest: a crash (or a SIGTERM preemption)
+anywhere re-enters at the last committed step, with data that is a pure
+function of the step (``data/pipeline.py``).
 """
 from __future__ import annotations
 
+import signal
 import statistics
 import time
 from collections import deque
 from typing import Callable, Optional
+
+from repro_torch.checkpoint import Checkpointer
 
 
 class HeartbeatMonitor:
@@ -47,3 +53,64 @@ class HeartbeatMonitor:
                     self.on_straggler(step, dt, med)
         self.window.append(dt)
         return dt
+
+
+class RestartableLoop:
+    """Run ``state = step_fn(state, step_idx)`` with checkpoint/restart.
+
+    ``state`` is a tree of tensors (params, opt, ...); ``state_like`` gives
+    its structure and dtypes for the restore, onto ``device`` (default
+    ``"cuda"``).  Preemption (SIGTERM) and injected failures
+    checkpoint-and-raise; calling ``run`` again resumes.  ``mesh`` /
+    ``specs`` (resharding on restore) are not ported yet.
+    """
+
+    def __init__(self, ckpt_dir: str, step_fn, state_like,
+                 ckpt_every: int = 50, mesh=None, specs=None,
+                 monitor: Optional[HeartbeatMonitor] = None,
+                 device="cuda"):
+        self.ckpt = Checkpointer(ckpt_dir)
+        self.step_fn = step_fn
+        self.state_like = state_like
+        self.ckpt_every = ckpt_every
+        self.mesh = mesh
+        self.specs = specs
+        self.device = device
+        self.monitor = monitor or HeartbeatMonitor()
+        self._preempted = False
+
+    def _handle_sigterm(self, *_):
+        self._preempted = True
+
+    def run(self, state, total_steps: int, start_step: int = 0,
+            fail_at: Optional[int] = None):
+        """Returns (final_state, last_step_done). ``fail_at`` injects a crash
+        (for tests / chaos drills)."""
+        prev = signal.signal(signal.SIGTERM, self._handle_sigterm)
+        try:
+            resume_step, restored = self.ckpt.restore_latest(
+                self.state_like, self.mesh, self.specs, device=self.device)
+            if restored is not None and resume_step >= start_step:
+                state, start_step = restored, resume_step
+            saved = None
+            for step in range(start_step, total_steps):
+                if fail_at is not None and step == fail_at:
+                    raise RuntimeError(f"injected failure at step {step}")
+                self.monitor.start()
+                state = self.step_fn(state, step)
+                self.monitor.stop(step)
+                if (step + 1) % self.ckpt_every == 0 or self._preempted:
+                    self.ckpt.save(step + 1, state)
+                    saved = step + 1
+                if self._preempted:
+                    self.ckpt.wait()
+                    raise SystemExit("preempted; checkpointed at step "
+                                     f"{step + 1}")
+            if saved != total_steps:  # else the last save is the final one
+                self.ckpt.save(total_steps, state, blocking=True)
+            return state, total_steps
+        finally:
+            # drain any in-flight async checkpoint so a crash/preemption
+            # always leaves a consistent latest-step index behind
+            self.ckpt.wait()
+            signal.signal(signal.SIGTERM, prev)

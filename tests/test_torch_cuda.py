@@ -6,6 +6,8 @@ reference package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -516,6 +518,32 @@ def test_cuda_flash_attention_refuses_mixed_devices(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_refuses_autograd(cuda_device, dtype):
+    """The kernel has no backward: under grad mode with an input that
+    requires grad it raises (and launches nothing) instead of returning a
+    result cut off from the graph; under no_grad, or when nothing requires
+    grad, it launches as always."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 64, 64), generator=g,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    before = tflash.LAUNCHES["flash_attention"]
+    for leaf in (q, k, v):
+        leaf.requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            tops.flash_attention(q, k, v)
+        leaf.requires_grad_(False)
+    assert tflash.LAUNCHES["flash_attention"] == before
+    q.requires_grad_()
+    with torch.no_grad():
+        got = tops.flash_attention(q, k, v)
+    plain = tops.flash_attention(q.detach(), k, v)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == before + 2
+    assert not got.requires_grad and torch.equal(got, plain)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_flash_attention_bf16_cache_prefix(cuda_device, d):
     """bf16 through the TMA maps over a cache prefix and a transposed
@@ -599,6 +627,59 @@ def test_cuda_lm_families_match_cpu(cuda_device, arch):
     assert cfg.attn_impl == "flash"
     for got, exp in zip(out[str(cuda_device)], out["cpu"]):
         torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_1b", "mamba2_780m",
+                                  "llama4_maverick_400b"])
+def test_cuda_training_matches_cpu(cuda_device, arch):
+    """The trainer's reduced config (f32, remat, attention through
+    sdpa_chunked) on the card against the same weights and batch on the
+    CPU: the loss and every gradient leaf of ``value_and_grad(loss_fn)`` to
+    rtol = atol = 1e-4, the tolerance of the CPU tests against the
+    reference.  A capacity factor of 0.5 makes the MoE drop pairs, so the
+    dispatch/combine scatters' spill rows and the embedding's sorted
+    segment-sum gradient run their CUDA forms.  Then two
+    ``build_train_step`` steps with float32 moments: losses to rtol 1e-4,
+    first moments to rtol 1e-4 and an atol of 1e-4 of each leaf's
+    largest."""
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import steps, train
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    cfg = train.train_config(arch, reduced=True)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    ds = SyntheticTokens(cfg.vocab_size, 64, 4, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        loss, grads = steps.value_and_grad(
+            model.loss_fn, p, shard_batch(ds.batch_at(0), device=dev))
+        step_fn = steps.build_train_step(model, peak_lr=1e-3,
+                                         warmup_steps=0, total_steps=10)
+        opt, losses = adamw_init(p, torch.float32), []
+        for step in range(2):
+            p, opt, met = step_fn(p, opt, shard_batch(ds.batch_at(step),
+                                                      device=dev))
+            losses.append(float(met["loss"]))
+        out[str(dev)] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                         losses, [m.cpu() for m in tree_leaves(opt.m)])
+    loss, grads, losses, ms = out[str(cuda_device)]
+    eloss, egrads, elosses, ems = out["cpu"]
+    np.testing.assert_allclose(loss, eloss, rtol=1e-4)
+    assert len(grads) == len(egrads)
+    for g, e in zip(grads, egrads):
+        assert g.shape == e.shape and g.dtype == e.dtype
+        torch.testing.assert_close(g, e, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(losses, elosses, rtol=1e-4)
+    for m, e in zip(ms, ems):
+        torch.testing.assert_close(m, e, rtol=1e-4,
+                                   atol=1e-4 * float(e.abs().max()))
 
 
 @pytest.mark.cuda

@@ -147,6 +147,26 @@ def test_attention_cached_cross_and_no_rope(impl, sq):
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
 
 
+@pytest.mark.parametrize("sq,skv,q_offset,causal,window", [
+    (12, 12, 0, True, None), (12, 12, 0, True, 4), (7, 20, 13, True, 5),
+    (9, 15, 0, False, None), (6, 10, 12, True, 3), (6, 10, 10, False, 2)])
+def test_sdpa_chunked_matches_reference(sq, skv, q_offset, causal, window):
+    """The chunked attention over chunks of 4 rows, against the reference's:
+    causal, windowed, a continuation past the first rows, non-causal, and
+    windows that leave rows with no key at all (zeros, not NaN)."""
+    rng = np.random.default_rng(sq * skv + q_offset)
+    q, k, v = (rng.standard_normal((2, 3, n, 16)).astype(np.float32)
+               for n in (sq, skv, skv))
+    exp = JL._sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, q_offset=jnp.int32(q_offset),
+                           chunk=4, window=window)
+    got = TL.sdpa_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=causal, q_offset=q_offset, chunk=4,
+                          window=window)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+
+
 def test_mlp_embed_unembed():
     jcfg, tcfg = _cfgs("mistral_nemo_12b")
     key = jax.random.PRNGKey(5)
@@ -177,15 +197,18 @@ def test_moe_matches_reference(cf, tokens):
     jp = JM.init_moe(jax.random.PRNGKey(7), jcfg)
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, tokens, tcfg.d_model)).astype(np.float32)
-    exp, _ = JM._moe_dense(jp, jnp.asarray(x), jcfg)
-    got = TM.moe(_t(jp), torch.from_numpy(x), tcfg)
+    exp, exp_aux = JM._moe_dense(jp, jnp.asarray(x), jcfg)
+    got, aux = TM.moe(_t(jp), torch.from_numpy(x), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), **TOL)
+    np.testing.assert_allclose(float(aux), float(exp_aux), rtol=1e-6)
     xt = x.reshape(-1, tcfg.d_model)
-    jg, ji, _ = JM._route(jnp.asarray(xt), jp["router"], tcfg.num_experts,
-                          tcfg.top_k)
-    tg, ti = TM.route(torch.from_numpy(xt), _t(jp)["router"], tcfg.top_k)
+    jg, ji, jaux = JM._route(jnp.asarray(xt), jp["router"],
+                             tcfg.num_experts, tcfg.top_k)
+    tg, ti, taux = TM.route(torch.from_numpy(xt), _t(jp)["router"],
+                            tcfg.top_k)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
     ids = rng.integers(0, 4, 40)
     np.testing.assert_array_equal(
         TM.positions_in_bucket(torch.from_numpy(ids)).numpy(),

@@ -24,7 +24,7 @@ from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax
 
 ARCHS = ["mistral_nemo_12b", "qwen3_32b", "codeqwen15_7b", "granite_moe_1b",
-         "qwen2_vl_72b"]
+         "qwen2_vl_72b", "gemma3_27b", "llama4_maverick_400b"]
 B, PROMPT, GEN = 2, 12, 6
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -234,8 +234,10 @@ def test_configs_and_registry():
         for f in dataclasses.fields(j):
             if f.name not in ("dtype", "moment_dtype", "attn_impl"):
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_config("gemma3_27b")
+    assert get_config("llama4_maverick_400b").moment_dtype == \
+        torch.float8_e5m2
+    with pytest.raises(ValueError, match="has no config 'gpt2'"):
+        get_config("gpt2")
     with pytest.raises(ValueError, match="unknown family"):
         get_model(dataclasses.replace(get_config("qwen3_32b"),
                                       family="rnn"))

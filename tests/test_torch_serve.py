@@ -2,7 +2,8 @@
 
 It runs end to end at a reduced size, its greedy tokens equal a greedy loop
 over the reference's ``prefill``/``decode_step`` on the same weights and
-prompts, and without CUDA its default device raises.
+prompts, it serves a checkpoint's parameters (``--ckpt-dir``) under
+``no_grad``, and without CUDA its default device raises.
 """
 import dataclasses
 
@@ -16,7 +17,9 @@ from repro.configs import get_config as jax_config, reduced as jax_reduced
 from repro.models import get_model as jax_model
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import serve
+from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax
+from repro_torch.optim.tree import tree_map
 
 ARGS = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "9",
         "--gen", "5"]
@@ -85,6 +88,39 @@ def test_default_device_raises_without_cuda():
         serve.main(["--reduced"])
 
 
-def test_ckpt_dir_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main([*ARGS, "--ckpt-dir", "somewhere"])
+def test_ckpt_dir_round_trip(tmp_path):
+    """--ckpt-dir serves the latest checkpoint's parameters exactly: the
+    logits and tokens of serving them from memory.  Its bf16 leaves come
+    back into the reduced (f32) model as their exact values.  An empty
+    directory serves the seed's random weights."""
+    from repro_torch.checkpoint import Checkpointer
+
+    cfg = reduced(get_config("granite_moe_1b"))
+    params = get_model(cfg).init(torch.Generator().manual_seed(5))
+    half = tree_map(lambda t: t.bfloat16(), params)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, {"params": params})
+    ck.save(7, {"params": half})
+    ck.wait()
+    r = serve.main([*ARGS, "--ckpt-dir", str(tmp_path)])
+    assert r.ckpt_step == 7
+    mem = serve.serve(cfg, batch=2, prompt_len=9, gen_len=5, device="cpu",
+                      params=tree_map(lambda t: t.float(), half))
+    assert torch.equal(r.prefill_logits, mem.prefill_logits)
+    assert torch.equal(r.tokens, mem.tokens)
+    empty = serve.main([*ARGS, "--ckpt-dir", str(tmp_path / "none")])
+    assert empty.ckpt_step is None
+    assert torch.equal(empty.prefill_logits, serve.main(ARGS).prefill_logits)
+
+
+def test_serve_runs_without_autograd():
+    """Parameters that require grad (fresh from training) serve under
+    no_grad: no graph is built, and on the card the flash kernel's guard
+    is not tripped."""
+    cfg = reduced(get_config("mistral_nemo_12b"))
+    params = tree_map(lambda t: t.requires_grad_(),
+                      get_model(cfg).init(torch.Generator().manual_seed(1)))
+    r = serve.serve(cfg, batch=2, prompt_len=6, gen_len=3, device="cpu",
+                    params=params)
+    for t in (r.prefill_logits, r.last_logits):
+        assert not t.requires_grad and t.grad_fn is None

@@ -44,13 +44,17 @@ by its BFS/SSSP/BC queries.  Then it profiles, with ``torch.profiler``
     ``bc_mode``.  The ranks' streams
     overlap on the card, so the summed device time can exceed the wall;
   * ``<arch> prefill`` / ``<arch> decode x N`` -- for each model of
-    ``chip_smoke.LM_ARCHS`` and ``chip_smoke.FAMILY_ARCHS`` at its serving
-    shape (``LM_BATCH`` prompts of ``LM_PROMPT`` tokens, Whisper's of
+    ``chip_smoke.LM_ARCHS``, ``chip_smoke.FAMILY_ARCHS`` and gemma3_27b (the
+    first of ``chip_smoke.LM2_ARCHS``) at its serving shape (``LM_BATCH`` prompts of ``LM_PROMPT`` tokens, Whisper's of
     ``WHISPER_PROMPT`` over its 1500 frames, seed 0 weights): one prefill
     after an unprofiled warm-up prefill, then ``DECODE_STEPS`` greedy
     decode steps after as many unprofiled warm-up steps;
   * ``<mamba2> ssd_chunked, one layer`` -- one Mamba2 layer's SSD at the
-    serving shape (the chunk loop's launches and busy share).
+    serving shape (the chunk loop's launches and busy share);
+  * ``<granite> train step`` -- one step of ``chip_smoke.py`` 3i's trainer
+    (``chip_smoke.TRAIN_ARCH`` at ``TRAIN_SEQ``, the first batch of
+    ``TRAIN_BATCHES``: forward, backward, AdamW) after an unprofiled
+    warm-up step, and the same step's unprofiled wall.
 
 For each window it prints the host wall time, the summed device time of
 every kernel, the device busy share (device time / wall; the profiler's
@@ -185,6 +189,7 @@ def main() -> int:
     out += sharded_windows(torch, np, smoke)
     torch.cuda.empty_cache()
     out += lm_windows(torch, smoke)
+    out.append(train_window(torch, smoke))
     print(json.dumps({"device": smi, "n": smoke.N_VERTICES, "windows": out}),
           flush=True)
     return 0
@@ -361,7 +366,7 @@ def lm_windows(torch, smoke):
     from repro_torch.models import get_model
 
     out = []
-    for arch in smoke.LM_ARCHS + smoke.FAMILY_ARCHS:
+    for arch in smoke.LM_ARCHS + smoke.FAMILY_ARCHS + smoke.LM2_ARCHS[:1]:
         cfg = get_config(arch)
         model = get_model(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -413,6 +418,42 @@ def lm_windows(torch, smoke):
         if cfg.family == "ssm":
             out.append(ssd_window(torch, smoke, cfg))
     return out
+
+
+def train_window(torch, smoke):
+    """One step of 3i's trainer at its shape, profiled after a warm-up
+    step, and one more unprofiled."""
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+
+    cfg = train.train_config(smoke.TRAIN_ARCH)
+    model = get_model(cfg)
+    batch = smoke.TRAIN_BATCHES[0]
+    ds = SyntheticTokens(cfg.vocab_size, smoke.TRAIN_SEQ, batch, seed=0)
+    step_fn = train.make_train_step(model, smoke.TRAIN_STEPS, smoke.TRAIN_LR)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = {"params": params, "opt": adamw_init(params, cfg.moment_dtype)}
+    del params
+
+    def step(i):
+        p, o, _ = step_fn(state["params"], state["opt"],
+                          shard_batch(ds.batch_at(i), device="cuda"))
+        state.update(params=p, opt=o)
+
+    step(0)  # warm-up
+    row = profile_window(torch, f"{smoke.TRAIN_ARCH} train step "
+                         f"({batch} x {smoke.TRAIN_SEQ})", lambda: step(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(2)
+    torch.cuda.synchronize()
+    row["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"  unprofiled step {row['unprofiled_ms']:.1f} ms", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return row
 
 
 if __name__ == "__main__":
