@@ -158,6 +158,27 @@ exit code:
                  Prints per kind and rung walls against the local
                  service's, bc_scores walls, collective bytes per query
                  and the peak memory of each mode;
+  3j. dist    -- the sharded engine across processes (repro_torch.shard
+                 .dist): 3g's stream through ShardedGraphService on a
+                 DistMesh, SHARDS processes started by dist.spawn on
+                 cuda:0 with transport="gloo" (every collective staged
+                 through pinned host memory), each holding one band; the
+                 processes load the kernels phase 1 built.  Each process
+                 runs gather mode on all COMMITS commits (bc_scores at 3g's
+                 versions) and ring mode on the first RING_COMMITS, without
+                 bc_scores (ring mode moves about 1.3e10 B a BC query
+                 through the host), and fails unless every reply
+                 equals 3g's local GraphService's at its version (BC
+                 delta and bc_scores to 1e-5), the collective bytes of
+                 every query equal 3g's ThreadGroup run's, both the delta
+                 and the full rung ran, and bool_mm_masked,
+                 minplus_mm_masked and count_mm_masked launched in that
+                 process.  A failed or hung process fails the phase.
+                 Prints the transport, per bc_mode rank 0's ms per query
+                 per kind and rung, the stream's collective bytes beside
+                 what the transport moved, each process's peak memory and
+                 the phase wall; with SHARDS cards it also runs
+                 transport="nccl", one card per rank, else it says so;
   3h. LM families -- the SSM, hybrid and encoder-decoder models
                  (FAMILY_ARCHS: mamba2_780m, zamba2_12b, whisper_large_v3)
                  through the serve entry point at full width and depth,
@@ -200,8 +221,9 @@ exit code:
                  bf16 peak and peak memory;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
-                 launches are those of 3a, 3e and 3g; bool_mm_masked's and
-                 minplus_mm_masked's those of 3b, 3c and 3g;
+                 launches are those of 3a, 3e, 3g and 3j (summed over 3j's
+                 processes); bool_mm_masked's and minplus_mm_masked's
+                 those of 3b, 3c, 3g and 3j;
                  flash_attention's those of 3d, 3h and 3i.  The masked rows
                  carry their band-shape timings under "band" (and
                  count_mm_masked's backward under "band_t"), the
@@ -3193,27 +3215,31 @@ def rung_walls(tel) -> dict:
     return {k: (statistics.median(v) / 1e3, len(v)) for k, v in by.items()}
 
 
-def shard_stream(torch, svc, bc_scores, stream, sources):
+def shard_stream(torch, svc, bc_scores, stream, sources, sync=True):
     """3a's stream through ``svc``: a cold ``bc_scores()``, then per commit
     BFS/SSSP/BC from ``sources`` (``ladder_round``), ``bc_scores()`` every
-    RING_DEPTH commits.  Returns the replies, the scores by version, the
-    bc_scores walls (s) and the stream's wall."""
+    RING_DEPTH commits (none when ``bc_scores`` is None).  Returns the
+    replies, the scores by version, the bc_scores walls (s) and the
+    stream's wall.  ``sync``: synchronise the card before reading a
+    wall."""
     replies, scores, score_walls = [], {}, []
+    synchronize = torch.cuda.synchronize if sync else (lambda: None)
 
     def timed_scores():
         t = time.perf_counter()
         s, v = bc_scores()
-        torch.cuda.synchronize()
+        synchronize()
         score_walls.append(time.perf_counter() - t)
         scores[v] = s
 
     t0 = time.perf_counter()
-    timed_scores()
+    if bc_scores is not None:
+        timed_scores()
     for i, ops in enumerate(stream):
         replies.extend(ladder_round(svc, ops, sources, i))
-        if (i + 1) % RING_DEPTH == 0:
+        if bc_scores is not None and (i + 1) % RING_DEPTH == 0:
             timed_scores()
-    torch.cuda.synchronize()
+    synchronize()
     return replies, scores, score_walls, time.perf_counter() - t0
 
 
@@ -3283,7 +3309,9 @@ def sharded_phase(torch, np, timings):
     SHARDS ranks of the one card, once per bc_mode, every reply held
     against the local GraphService's at the same version; then the front
     end over the sharded service.  Returns the launches of the three
-    masked kernels in the sharded runs."""
+    masked kernels in the sharded runs, and what 3j holds its processes
+    against: the local service's replies and scores (on the host) and, per
+    bc_mode, the collective bytes of every traced query in order."""
     from repro_torch.data import load_rmat_graph
     from repro_torch.engine import GraphService
     from repro_torch.kernels import bool_mm as kb
@@ -3318,7 +3346,7 @@ def sharded_phase(torch, np, timings):
     kb.reset_launches()
     kmp.reset_launches()
     kc.reset_launches()
-    peaks, coll, svc = {}, {}, None
+    peaks, coll, coll_seq, svc = {}, {}, {}, None
     for bc_mode in ("gather", "ring"):
         svc = None
         torch.cuda.empty_cache()
@@ -3353,6 +3381,7 @@ def sharded_phase(torch, np, timings):
             if r.get("span") == "query" and r.get("coll_bytes"):
                 per.setdefault(r["kind"], []).append(r["coll_bytes"])
         coll[bc_mode] = {k: statistics.mean(v) for k, v in per.items()}
+        coll_seq[bc_mode] = query_coll_bytes(tel)
         log(f"  {bc_mode}: {len(got)} replies == the local service's "
             f"(bc_scores at versions {sorted(got_scores)} to 1e-5) in "
             f"{wall:.2f} s; {st.as_dict()}; peak "
@@ -3382,7 +3411,193 @@ def sharded_phase(torch, np, timings):
             + ", ".join(f"{k} {v:.4g}" for k, v in sorted(coll[m].items())))
     log(f"  peak device memory: gather {peaks['gather'] / 2**30:.2f} GiB, "
         f"ring {peaks['ring'] / 2**30:.2f} GiB")
+    ref = {"want": [(kind, src, r.version, on_host(r.result))
+                    for kind, src, _, r in want],
+           "scores": {v: t.cpu() for v, t in want_scores.items()},
+           "coll": coll_seq, "stream": stream, "sources": sources}
+    return launches, ref
+
+
+def query_coll_bytes(tel) -> list:
+    """The collective bytes of every traced query, in order (0 where a
+    query ran no collective)."""
+    return [r.get("coll_bytes") or 0 for r in tel.tracer.records
+            if r.get("span") == "query"]
+
+
+def on_host(result):
+    """A query result with every field on the host."""
+    return type(result)(*(x.cpu() for x in result))
+
+
+# --------------------------------- phase 3j --------------------------------
+
+DIST_TIMEOUT = 300      # seconds any one collective of 3j may take
+DIST_JOIN = 600         # seconds 3j's four processes may take in all
+# Ring mode moves about 1.3e10 B a BC query through host memory under gloo
+# (3g's counts; 14-21 s a BC collect, 45 s a cold bc_scores on the H100's
+# host): 3j's ring run takes the first RING_COMMITS commits of the stream
+# and no bc_scores; gather mode runs all COMMITS with bc_scores at 3g's
+# versions.
+RING_COMMITS = 2
+
+
+def dist_rank(mesh, cfg, stream, sources, ref_path):
+    """One process of phase 3j: 3a's state and stream through
+    ShardedGraphService on ``mesh`` (this process's rank), once per
+    bc_mode, every reply held against 3g's local service's and the
+    collective bytes of every query against 3g's ThreadGroup run.
+    ``cfg``: the parent's sizes (a spawned process imports this module
+    afresh).  Returns per bc_mode the walls, the bytes and the kernel
+    launches.  On the CPU (a rehearsal: the wrappers take their plain
+    versions, which launch nothing) the launch and memory reads are
+    skipped."""
+    import torch
+
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import count_mm as kc
+    from repro_torch.kernels import minplus_mm as kmp
+    from repro_torch.shard import ShardedGraphService
+
+    ref = torch.load(ref_path, weights_only=False)
+    dev = mesh.device
+    card = dev.type == "cuda"
+    globals().update(cfg)  # the sizes as the parent set them
+    state = load_rmat_graph(N_VERTICES, N_EDGES, seed=SEED, device=dev)
+    want = [(kind, src, v, type(res)(*(x.to(dev) for x in res)))
+            for kind, src, v, res in ref["want"]]
+    out = {}
+    for bc_mode, commits, scored in (("gather", COMMITS, True),
+                                     ("ring", RING_COMMITS, False)):
+        svc = None
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kb.reset_launches()
+        kmp.reset_launches()
+        kc.reset_launches()
+        tel = shard_telemetry()
+        svc = ShardedGraphService(
+            state, mesh, use_kernel=True, src_chunk=SRC_CHUNK,
+            bc_mode=bc_mode, ring_depth=RING_DEPTH, batch_size=BATCH_SIZE,
+            telemetry=tel)
+        moved0 = dict(mesh.moved)
+        got, got_scores, score_walls, wall = shard_stream(
+            torch, svc, svc.bc_scores if scored else None,
+            stream[:commits], sources, sync=card)
+        moved = {k: v - moved0.get(k, 0) for k, v in mesh.moved.items()
+                 if v != moved0.get(k, 0)}
+        for (kind, src, mode, a), (_, _, v, b) in zip(got, want):
+            if a.version != v or not same_single(torch, kind, a.result, b):
+                raise AssertionError(
+                    f"3j {bc_mode} rank {mesh.rank}: {kind}({src}) {mode} at "
+                    f"version {a.version} ({a.mode}) != 3g's local service's")
+        for v, sc in got_scores.items():
+            exp = ref["scores"][v].to(dev)
+            if not torch.allclose(sc, exp, equal_nan=True, **TOL):
+                raise AssertionError(f"3j {bc_mode} rank {mesh.rank}: "
+                                     f"bc_scores at version {v} off")
+        coll = query_coll_bytes(tel)
+        first = 0 if scored else 1  # 3g's stream opens with bc_scores
+        if coll != ref["coll"][bc_mode][first:first + len(coll)]:
+            raise AssertionError(f"3j {bc_mode} rank {mesh.rank}: collective "
+                                 "bytes differ from 3g's ThreadGroup run")
+        st = svc.stats
+        if st.delta < 1 or st.full < 1:
+            raise AssertionError(f"3j {bc_mode}: a rung never ran ({st})")
+        launches = {"bool_mm_masked": kb.LAUNCHES["bool_mm_masked"],
+                    "minplus_mm_masked": kmp.LAUNCHES["minplus_mm_masked"],
+                    "count_mm_masked": kc.LAUNCHES["count_mm_masked"]}
+        for name, n in launches.items():
+            if card and n <= 0:
+                raise AssertionError(f"3j {bc_mode} rank {mesh.rank} never "
+                                     f"launched {name}")
+        out[bc_mode] = {
+            "replies": len(got), "commits": commits, "scored": scored,
+            "wall": wall,
+            "walls": {f"{k}/{m}": v for (k, m), v in rung_walls(tel).items()},
+            "score_walls": score_walls, "coll_bytes": sum(coll),
+            "moved": moved, "launches": launches, "stats": st.as_dict(),
+            "peak": torch.cuda.max_memory_allocated(dev) if card else 0}
+        tel.close()
+    return out
+
+
+def dist_phase(torch, np, timings, ref):
+    """Phase 3j: 3g's stream through ShardedGraphService on a DistMesh, one
+    process per rank (dist.spawn, SHARDS processes on cuda:0 over gloo;
+    NCCL with one card per rank where there are SHARDS cards).  The
+    kernels were built in phase 1: the processes load them from
+    kernels/_build.  Returns the launches of the three masked kernels,
+    summed over the processes."""
+    import tempfile
+
+    from repro_torch.shard import spawn
+
+    stream, sources = ref["stream"], ref["sources"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3j_")
+    ref_path = os.path.join(tmp, "ref.pt")
+    torch.save({k: ref[k] for k in ("want", "scores", "coll")}, ref_path)
+    runs = [("gloo", f"{DEV}:0" if DEV == "cuda" else DEV)]
+    if torch.cuda.device_count() >= SHARDS:
+        runs.append(("nccl", None))
+    else:
+        log(f"  NCCL not run: it needs one card per rank, {SHARDS} cards; "
+            f"this machine has {torch.cuda.device_count()}")
+    launches = {}
+    try:
+        for transport, device in runs:
+            torch.cuda.empty_cache()
+            log(f"  transport {transport}: {SHARDS} processes on "
+                f"{device or 'one card each'}; gather mode on all {COMMITS} "
+                f"commits with bc_scores at 3g's versions, ring mode on the "
+                f"first {RING_COMMITS} and no bc_scores")
+            t0 = time.perf_counter()
+            outs = spawn(dist_rank, SHARDS, device=device,
+                         transport=transport, timeout=DIST_TIMEOUT,
+                         join_timeout=DIST_JOIN,
+                         args=(dist_cfg(), stream, sources, ref_path))
+            wall = time.perf_counter() - t0
+            timings[f"3j {transport} (spawn to join)"] = wall
+            report_dist(outs, transport)
+            for out in outs:
+                for mode in out.values():
+                    for name, n in mode["launches"].items():
+                        launches[name] = launches.get(name, 0) + n
+    finally:
+        os.remove(ref_path)
+        os.rmdir(tmp)
+    log(f"  3j kernel launches, summed over the processes {launches}")
     return launches
+
+
+def dist_cfg() -> dict:
+    """The sizes 3j's processes run at, as this process has them."""
+    names = ("N_VERTICES", "N_EDGES", "SEED", "COMMITS", "RING_COMMITS",
+             "SRC_CHUNK", "RING_DEPTH", "BATCH_SIZE")
+    return {k: globals()[k] for k in names}
+
+
+def report_dist(outs, transport):
+    """3j's lines: per bc_mode, rank 0's ms per query per kind and rung,
+    the stream's collective bytes beside what the transport moved, each
+    process's peak memory."""
+    for mode in ("gather", "ring"):
+        r0 = outs[0][mode]
+        log(f"  {transport} {mode}: {r0['replies']} replies per process == "
+            f"3g's local service's ({r0['commits']} commits) in "
+            f"{r0['wall']:.2f} s (rank 0); {r0['stats']}")
+        log("    ms per query, median (count), rank 0: " + "; ".join(
+            f"{k} {v[0]:.2f} ({v[1]})" for k, v in sorted(r0["walls"].items())))
+        if r0["scored"]:
+            log("    bc_scores s: " + " / ".join(
+                f"{t:.3f}" for t in r0["score_walls"]))
+        log(f"    collective bytes (counted, as 3g) {r0['coll_bytes']:.4g}; "
+            f"moved by the transport: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in sorted(r0["moved"].items())))
+        log("    peak device memory per process: " + ", ".join(
+            f"{o[mode]['peak'] / 2**30:.2f} GiB" for o in outs))
 
 
 def main() -> int:
@@ -3495,9 +3710,19 @@ def main() -> int:
     log(f"== phase 3g: sharded tile-grid engine (ShardedGraphService, "
         f"{SHARDS} ranks on one card)")
     t0 = time.perf_counter()
-    for name, n in sharded_phase(torch, np, timings).items():
+    shard_launches, shard_ref = sharded_phase(torch, np, timings)
+    for name, n in shard_launches.items():
         launches[name] += n
     timings["sharded phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log(f"== phase 3j: sharded engine across processes (DistMesh, {SHARDS} "
+        f"processes)")
+    t0 = time.perf_counter()
+    for name, n in dist_phase(torch, np, timings, shard_ref).items():
+        launches[name] += n
+    del shard_ref
+    timings["dist phase total"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     log(f"== phase 3h: LM serving, SSM / hybrid / encoder-decoder "

@@ -24,8 +24,8 @@ no type for, are written as the reference writes them (its ``ml_dtypes``
 arrays): the raw bits under the ``.npy`` descr ``'<V2'`` / ``'<f1'``, and
 ``"bfloat16"`` / ``"float8_e5m2"`` as the manifest's dtype; they are read
 back as raw bits and viewed as the torch dtype.  The reference's
-``mesh=``/``specs=`` resharding onto a graph mesh is not ported yet
-(ROADMAP.md, queue 1, slice 3).
+``mesh=``/``specs=`` resharding of an LM train state onto a ``("data",
+"model")`` mesh is not ported yet (ROADMAP.md, queue 1, slice 4).
 """
 from __future__ import annotations
 
@@ -255,7 +255,7 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "restore_checkpoint(mesh=, specs=) is not ported yet "
-            "(ROADMAP.md, queue 1, slice 3)")
+            "(ROADMAP.md, queue 1, slice 4)")
     dev = resolve_device(device)
     names = [_path_str(path) for path, _ in _leaves(tree_like)]
     for _ in range(max_retries):

@@ -392,6 +392,12 @@ class BaseGraphService:
         sharded service carries its cross-shard agreement here)."""
         return False
 
+    def _agree(self, value):
+        """The value every process of the service acts on, for a decision
+        that reads the clock: this process's own here; the sharded service
+        on a process group takes rank 0's."""
+        return value
+
     # ----------------------------- telemetry -----------------------------
 
     def _acct_begin(self):
@@ -528,7 +534,7 @@ class BaseGraphService:
         last_exc: Optional[Exception] = None
         for attempt in range(pol.max_retries + 1):
             if attempt:
-                if pol.deadline_exceeded(t0):
+                if self._agree(pol.deadline_exceeded(t0)):
                     break
                 back = pol.backoff_s(attempt)
                 if back > 0:

@@ -80,6 +80,7 @@ from repro_torch.engine.service import GraphService, QueryReply
 from repro_torch.obs.trace import maybe_span
 from repro_torch.resil.faults import P_SERVE_DISPATCH, InjectedCrash, \
     inject
+from repro_torch.shard.dist import DistMesh
 
 from .batch import classify_local, dispatch_local_group
 
@@ -135,6 +136,13 @@ class AsyncGraphService:
                  poll_ms: float = 2.0, max_queue: int = 4096):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        if isinstance(getattr(service, "mesh", None), DistMesh):
+            raise NotImplementedError(
+                "AsyncGraphService over a DistMesh is not built: its "
+                "threads order queries per process, and the processes must "
+                "run the same collects in the same order, which needs a "
+                "rank-0 dispatcher that broadcasts each dispatch (ROADMAP "
+                "queue 1, 'the front end over a DistMesh')")
         self.service = service
         self.max_batch = max_batch
         self.poll_s = max(poll_ms, 0.1) / 1e3

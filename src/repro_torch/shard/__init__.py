@@ -6,8 +6,18 @@ The tile-sparse semiring path (``repro_torch.core.tiles`` +
 ranks, so each rank owns a contiguous band of source vertices plus that
 band's occupancy grid, and BFS/SSSP/BC run as per-rank bodies -- local
 tile-skipping semiring work, one vcap-sized collective per level -- on one
-thread and one CUDA stream per rank (``group.ThreadGroup``).
+thread and one CUDA stream per rank (``group.ThreadGroup``), or in one
+process per rank over a ``torch.distributed`` group (``dist.DistMesh``,
+``dist.DistGroup``).
 """
+from .dist import (  # noqa: F401
+    DistGroup,
+    DistMesh,
+    RankFailure,
+    SpawnError,
+    init_from_env,
+    spawn,
+)
 from .group import GraphMesh, ThreadGroup  # noqa: F401
 from .tile_shard import (  # noqa: F401
     GRAPH_AXIS,

@@ -37,8 +37,9 @@ tensor as used by it before reading.  Tensors on one device pass by
 reference (a ring hop hands the band over as it is); between devices
 they are copied.
 
-A ``torch.distributed`` group with the same methods (NCCL on four cards)
-would run the same bodies unchanged; it is not built here.
+``repro_torch.shard.dist`` runs the same bodies unchanged with one
+process per rank (a ``torch.distributed`` group: NCCL with one card per
+rank, or gloo through host memory).
 """
 from __future__ import annotations
 
@@ -327,8 +328,12 @@ def as_graph_mesh(mesh=None) -> GraphMesh:
     """The 1-D graph axis the sharded engine partitions over: ``mesh`` as
     a :class:`GraphMesh` (a sequence of devices, nested sequences
     flattened, as the reference flattens a production mesh's grid), or
-    every visible CUDA device when ``None``."""
-    if isinstance(mesh, GraphMesh):
+    every visible CUDA device when ``None``.  A
+    :class:`~repro_torch.shard.dist.DistMesh` (one process per rank) is
+    returned unchanged."""
+    from .dist import DistMesh
+
+    if isinstance(mesh, (GraphMesh, DistMesh)):
         return mesh
     if mesh is None:
         if not torch.cuda.is_available():

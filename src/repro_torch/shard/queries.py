@@ -46,9 +46,14 @@ warm-starts the sharded level loop.  Every delta result is bit-identical to
 the full sharded recompute and to the local engine's delta path.
 
 Tensors that the reference keeps replicated on every device are copied to
-every rank's device (``_mesh_replicated``; a no-op on one card), and the
-per-rank outputs come back to rank 0's device (``_host_local``), where the
-snapshot is expected to live.
+every rank's device (``_share``; a no-op on one card), and the per-rank
+outputs come back to rank 0's device, where the snapshot is expected to
+live.  On a :class:`~.dist.DistMesh` (one process per rank) everything is
+this process's: each process passes its own replicated inputs and its own
+band, runs its rank's body once (:class:`~.dist.DistGroup`), keeps its own
+replicated outputs, and receives the split outputs from every rank (a
+merge counted in the group's ``moved``, not in its collective bytes); the
+unsharded helper math then runs in every process on the same inputs.
 """
 from __future__ import annotations
 
@@ -72,8 +77,9 @@ from repro_torch.core.queries import (
 )
 from repro_torch.obs.profile import _tensors
 
+from .dist import DistGroup, DistMesh
 from .group import ThreadGroup
-from .tile_shard import ShardedTileView
+from .tile_shard import ShardedTileView, local_ranks
 
 
 class ShardedBFSResult(NamedTuple):
@@ -452,43 +458,45 @@ _BODIES = {"bfs": _bfs_body, "sssp": _sssp_body,
            "bc_delta": _bc_delta_body, "bc_delta_ring": _bc_delta_ring_body}
 
 
-def _host_local(mesh, x: torch.Tensor) -> torch.Tensor:
-    """A per-rank output on rank 0's device, where the unsharded helper
-    math (tree parents, the delta poison and cuts) runs once instead of
-    once per rank (a no-op for rank 0's own outputs)."""
-    return x.to(mesh.devices[0])
-
-
-def _mesh_replicated(mesh, x: torch.Tensor) -> list:
-    """The inverse hop: one copy of a replicated input per rank's device
-    (the same tensor on a rank that shares its device)."""
-    return [x.to(d) for d in mesh.devices]
-
-
-def _shares(mesh, a, layout: str) -> list:
-    """Each rank's share of one argument, by its layout."""
+def _share(mesh, a, layout: str, rank: int):
+    """Rank ``rank``'s share of one argument, by its layout, on its
+    device (a replicated tensor is the same tensor on a rank that shares
+    its device)."""
     if layout == BAND:
-        return a
+        return a[rank]
+    dev = mesh.devices[rank]
     if layout == SPLIT:
         part = a.shape[0] // mesh.size
-        return [a[r * part:(r + 1) * part].to(d)
-                for r, d in enumerate(mesh.devices)]
-    return _mesh_replicated(mesh, a)
+        return a[rank * part:(rank + 1) * part].to(dev)
+    return a.to(dev)
 
 
 def _launch(mesh, body, layouts, args):
-    """Run ``body`` on every rank with its share of ``args``; returns
-    ``(outputs on rank 0's device, the group)``."""
+    """Run ``body`` on every rank this process holds with its share of
+    ``args``; returns ``(outputs, the group)``: on a ``GraphMesh`` rank
+    0's replicated outputs and the split ones concatenated on rank 0's
+    device, where the unsharded helper math (tree parents, the delta
+    poison and cuts) then runs once; on a ``DistMesh`` this process's
+    replicated outputs and the split ones merged from every process."""
     in_l, out_l = layouts
     n = mesh.size
     if len(args) != len(in_l):
         raise ValueError(f"{len(args)} arguments for {len(in_l)} layouts")
-    per_rank = [_shares(mesh, a, lay) for a, lay in zip(args, in_l)]
+    rank_args = [None] * n
+    for r in local_ranks(mesh):
+        rank_args[r] = tuple(_share(mesh, a, lay, r)
+                             for a, lay in zip(args, in_l))
+    if isinstance(mesh, DistMesh):
+        group = DistGroup(mesh)
+        mine = group.run(body, rank_args)[mesh.rank]
+        return tuple(o if lay == REPLICATED else group.merge(o)
+                     for o, lay in zip(mine, out_l)), group
     group = ThreadGroup(mesh)
-    outs = group.run(body, [tuple(x[r] for x in per_rank) for r in range(n)])
+    outs = group.run(body, rank_args)
+    host = mesh.devices[0]
     merged = tuple(
         outs[0][k] if lay == REPLICATED
-        else torch.cat([_host_local(mesh, o[k]) for o in outs])
+        else torch.cat([o[k].to(host) for o in outs])
         for k, lay in enumerate(out_l))
     return merged, group
 
@@ -556,15 +564,18 @@ def _dispatch(accountant, kind: str, view: ShardedTileView, prog, args,
     return outs
 
 
-def _account(accountant, group: ThreadGroup) -> None:
+def _account(accountant, group) -> None:
     """Overlay this call's collective bytes on the cost the accountant
     deposited: the group counted them as they ran (per op name, one
     rank's share), where the reference parses them off the compiled
     program once per signature.  Memory is measured once per signature
-    (``repro_torch.obs.cost``); the bytes are this call's."""
+    (``repro_torch.obs.cost``); the bytes are this call's.  A
+    ``DistGroup`` adds what its transport moved (``moved``)."""
+    extra = ({"moved": dict(group.moved)} if isinstance(group, DistGroup)
+             else {})
     accountant.last = dict(accountant.last,
                            collective_bytes=sum(group.bytes.values()),
-                           collectives=dict(group.bytes))
+                           collectives=dict(group.bytes), **extra)
 
 
 def bfs(view: ShardedTileView, state: GraphState, srcs, *,

@@ -29,6 +29,18 @@ the ``validated`` flag of a single-collect reply (``_icn_validated``).
 The view is refreshed in place and shared by every collect, so collects
 run one at a time (a service lock); updates and their commits do not
 take it.
+
+On a :class:`~repro_torch.shard.dist.DistMesh` every process runs the
+same commits and queries in the same order, and each decision that reads
+the clock is rank 0's, sent to every process as a few-byte control
+message (``DistMesh.broadcast``, never counted as collective bytes): the
+rung of each collect, whose delta-vs-full crossover the adaptive
+controller moves with measured walls, and the policy's deadline before a
+retry.  The breaker counts consults, not time, and a ``FaultPlan`` is
+seeded, so both agree by construction.  Only rank 0 journals, runs the
+heartbeat monitor and serves ``/metrics`` (``serve_metrics``); every rank
+keeps its own registry.  ``recover()`` runs in every process against
+rank 0's journal, after a barrier.
 """
 from __future__ import annotations
 
@@ -51,6 +63,7 @@ from repro_torch.resil.faults import P_COLLECT_DELTA, P_COLLECT_DISPATCH, \
 from repro_torch.resil.policy import ResiliencePolicy
 
 from . import queries as shard_queries
+from .dist import DistMesh
 from .tile_shard import (
     ShardedTileView,
     as_graph_mesh,
@@ -78,7 +91,10 @@ class ShardedGraphService(BaseGraphService):
     """submit()/query() front end over the sharded tile grid.
 
     ``mesh``: a :class:`~repro_torch.shard.GraphMesh` (or a sequence of
-    devices); the snapshot lives on rank 0's device.  ``bc_mode`` picks
+    devices); the snapshot lives on rank 0's device.  On a
+    :class:`~repro_torch.shard.dist.DistMesh` it lives on the process's own
+    device, and ``journal`` / ``monitor`` are rank 0's only (module
+    docstring).  ``bc_mode`` picks
     the adjacency strategy of every BC collect, full and delta:
     ``"gather"`` all-gathers the bands per query, ``"ring"`` rotates them
     (see ``shard.queries.bc_batched``).  ``use_kernel`` as in
@@ -102,6 +118,12 @@ class ShardedGraphService(BaseGraphService):
                  compact_every: Optional[int] = None):
         shard_queries._bc_kind(bc_mode, delta=False)  # validate up front
         self.mesh = as_graph_mesh(mesh)
+        if (isinstance(self.mesh, DistMesh) and self.mesh.rank != 0
+                and (journal is not None or monitor is not None)):
+            raise ValueError(
+                f"rank {self.mesh.rank}: on a DistMesh only rank 0 journals "
+                "and runs the heartbeat monitor; pass journal=None and "
+                "monitor=None on the other ranks")
         self.tile = tile
         self.use_kernel = use_kernel
         self.src_chunk = src_chunk
@@ -161,6 +183,27 @@ class ShardedGraphService(BaseGraphService):
     def _icn_validated(self, result) -> bool:
         return bool(result.agree)
 
+    def _agree(self, value):
+        """Rank 0's ``value`` on a ``DistMesh`` (a control message), else
+        ``value``."""
+        if isinstance(self.mesh, DistMesh):
+            return self.mesh.broadcast(value)
+        return value
+
+    def serve_metrics(self, **kwargs):
+        """An :class:`repro_torch.obs.expo.ExpoServer` over this service's
+        telemetry (``kwargs``: ``port``, ``host``), or ``None`` on a rank
+        other than 0 of a ``DistMesh``: one process serves ``/metrics``."""
+        from repro_torch.obs.expo import ExpoServer
+
+        if self.telemetry is None:
+            raise ValueError("serve_metrics() needs telemetry= on the "
+                             "service")
+        if isinstance(self.mesh, DistMesh) and self.mesh.rank != 0:
+            return None
+        return ExpoServer(self.telemetry, journal=self.scheduler.journal,
+                          **kwargs)
+
     def _delta_usable(self, kind: str, prior, state: GraphState) -> bool:
         """The sharded ``_prior_usable``: a same-vcap prior whose payload
         the delta path can certify (SSSP: no prior negative cycle).
@@ -206,7 +249,7 @@ class ShardedGraphService(BaseGraphService):
         entry = self.ring.latest
         state = entry.state
         slot = self._cache.get(key)
-        mode, res = "full", None
+        mode, res, dirty = "full", None, None
         # A tripped breaker quarantines the cached prior: the clean full
         # path answers until half-open probes succeed.
         use_prior = slot is not None and self._breaker_allows(kind)
@@ -214,7 +257,7 @@ class ShardedGraphService(BaseGraphService):
             if use_prior:
                 prior = slot.result
                 if slot.version == entry.version:
-                    mode, res = "unchanged", prior
+                    mode = "unchanged"
                 else:
                     dirty = self.ring.dirty_between(slot.version,
                                                     entry.version)
@@ -229,13 +272,19 @@ class ShardedGraphService(BaseGraphService):
                                                                 state):
                             touched = True
                         if not touched:
-                            mode, res = "unchanged", prior
+                            mode = "unchanged"
                         elif (frac <= self._threshold(kind)
                               and self._delta_usable(kind, prior, state)):
-                            mode, res = "delta", self._delta_collect(
-                                kind, prior, dirty, srcs, state)
-                            if res is None:  # new negcycle: canonical full
-                                mode, res = "full", None
+                            mode = "delta"
+            # The threshold reads the adaptive controller, which moves with
+            # measured walls: every process takes rank 0's rung.
+            mode = self._agree(mode)
+            if mode == "unchanged":
+                res = prior
+            elif mode == "delta":
+                res = self._delta_collect(kind, prior, dirty, srcs, state)
+                if res is None:  # new negcycle: canonical full
+                    mode = "full"
             if res is None:
                 res = self._full_collect(kind, srcs, state)
         except InjectedCrash:

@@ -13,7 +13,10 @@ partial frontiers (``repro_torch.shard.queries``).
 
 Where the reference keeps one global ``jax.Array`` sharded ``P(axis,
 None)``, the view here holds the bands themselves, one per rank; host code
-reads them concatenated through ``gather_view``.
+reads them concatenated through ``gather_view``.  On a
+:class:`~.dist.DistMesh` each process holds only its own rank's band and
+occupancy rows (``None`` in the other ranks' slots), and ``gather_view``
+and ``sharded_occupancy_stats`` gather through the process group.
 
 ``build_sharded_view`` derives each band from a snapshot, on its rank's
 device (``vcap`` padded up to a multiple of ``n * tile`` so whole tile rows
@@ -36,6 +39,7 @@ from repro_torch.core.tiles import TILE, TileView, _tile_counts, \
     dirty_row_windows
 from repro_torch.obs import CounterStruct
 
+from .dist import DistGroup, DistMesh
 from .group import GraphMesh, as_graph_mesh
 
 GRAPH_AXIS = "graph"  # the reference's axis name; a GraphMesh has one axis
@@ -46,13 +50,24 @@ def _padded_dim(vcap: int, tile: int, n_shards: int) -> int:
     return -(-vcap // chunk) * chunk
 
 
+def local_ranks(mesh) -> tuple:
+    """The ranks whose bands this process holds: every rank of a
+    :class:`~.group.GraphMesh`, this process's own of a
+    :class:`~.dist.DistMesh`."""
+    if isinstance(mesh, DistMesh):
+        return (mesh.rank,)
+    return tuple(range(mesh.size))
+
+
 @dataclass(frozen=True)
 class ShardedTileView:
     """Row-sharded blocked adjacency snapshot.
 
     ``w[i]`` / ``occ[i]`` live on ``mesh.devices[i]``: rows ``[i * vp/n,
     (i+1) * vp/n)`` of the padded dense weights (f32, +inf = no edge) and
-    rows ``[i * nt/n, (i+1) * nt/n)`` of the int32 occupancy grid.
+    rows ``[i * nt/n, (i+1) * nt/n)`` of the int32 occupancy grid.  On a
+    ``DistMesh`` only this process's rank's slots hold tensors; the
+    others are ``None``.
     """
 
     w: tuple    # n x f32[Vp/n, Vp]
@@ -61,12 +76,17 @@ class ShardedTileView:
     tile: int
 
     @property
+    def _mine(self) -> int:
+        """The first slot this process holds."""
+        return local_ranks(self.mesh)[0]
+
+    @property
     def vp(self) -> int:
-        return self.w[0].shape[1]
+        return self.w[self._mine].shape[1]
 
     @property
     def n_tiles(self) -> int:
-        return self.occ[0].shape[1]
+        return self.occ[self._mine].shape[1]
 
     @property
     def n_shards(self) -> int:
@@ -75,19 +95,28 @@ class ShardedTileView:
     @property
     def band(self) -> int:
         """Rows of ``w`` owned by one rank."""
-        return self.w[0].shape[0]
+        return self.w[self._mine].shape[0]
 
     @property
     def rows_per_shard(self) -> int:
         """Tile rows owned by one rank."""
-        return self.occ[0].shape[0]
+        return self.occ[self._mine].shape[0]
+
+
+def _gathered(view: ShardedTileView, bands) -> torch.Tensor:
+    """Every rank's band of ``bands`` (a slot tuple of ``view``),
+    concatenated on the first local rank's device."""
+    if isinstance(view.mesh, DistMesh):
+        return DistGroup(view.mesh).merge(bands[view.mesh.rank])
+    dev = view.mesh.devices[0]
+    return torch.cat([b.to(dev) for b in bands])
 
 
 def sharded_occupancy_stats(view: ShardedTileView) -> dict:
     """Host-side summary incl. the per-rank tile-skip rates the kernels
     realise on each band."""
-    bands = [o.cpu() for o in view.occ]
-    occ = torch.cat(bands)
+    occ = _gathered(view, view.occ).cpu()
+    bands = occ.split(view.rows_per_shard)
     total = int(occ.numel())
     active = int((occ > 0).sum())
     per_shard = [round(float((b == 0).float().mean()) if b.numel() else 0.0,
@@ -105,11 +134,10 @@ def sharded_occupancy_stats(view: ShardedTileView) -> dict:
 
 
 def gather_view(view: ShardedTileView) -> TileView:
-    """The sharded view as one ``TileView`` on rank 0's device (test
-    oracle / debugging; O(Vp^2) copy)."""
-    dev = view.mesh.devices[0]
-    return TileView(torch.cat([b.to(dev) for b in view.w]),
-                    torch.cat([b.to(dev) for b in view.occ]))
+    """The sharded view as one ``TileView`` on rank 0's device (on a
+    ``DistMesh``: on every process's own; test oracle / debugging; O(Vp^2)
+    copy)."""
+    return TileView(_gathered(view, view.w), _gathered(view, view.occ))
 
 
 # ------------------------------- build ------------------------------------
@@ -129,15 +157,18 @@ def _build_band(src, dst, w, rank: int, band: int, rows: int, vp: int,
 
 def build_sharded_view(state: GraphState, mesh,
                        tile: int = TILE) -> ShardedTileView:
-    """Full O(vcap^2 + ecap) derivation, one band per rank of ``mesh``."""
+    """Full O(vcap^2 + ecap) derivation, one band per rank of ``mesh``
+    (on a ``DistMesh``, this process's rank's only)."""
     mesh = as_graph_mesh(mesh)
     n = mesh.size
     vp = _padded_dim(state.vcap, tile, n)
     band, rows = vp // n, vp // (n * tile)
     live = live_edge_mask(state)
     src, dst, w = state.esrc[live], state.edst[live], state.ew[live]
-    bands = [_build_band(src, dst, w, i, band, rows, vp, tile, dev)
-             for i, dev in enumerate(mesh.devices)]
+    bands = [(None, None)] * n
+    for i in local_ranks(mesh):
+        bands[i] = _build_band(src, dst, w, i, band, rows, vp, tile,
+                               mesh.devices[i])
     return ShardedTileView(tuple(b[0] for b in bands),
                            tuple(b[1] for b in bands), mesh, tile)
 
@@ -215,7 +246,8 @@ def refresh_sharded_view(state: GraphState, prev: ShardedTileView | None,
     dispatch); more than half the rows moved -- or a resize, a mesh or tile
     change, or no dirty info -- rebuilds from scratch.  The row path writes
     into ``prev``'s bands IN PLACE (where the reference donates them): the
-    call CONSUMES ``prev``.  Tallies accumulate in ``refresh_stats``.
+    call CONSUMES ``prev``.  Tallies accumulate in ``refresh_stats``: the
+    rows and dispatches of the bands this process holds.
     """
     if prev is not None:
         mesh = mesh or prev.mesh
@@ -237,8 +269,11 @@ def refresh_sharded_view(state: GraphState, prev: ShardedTileView | None,
         return build_sharded_view(state, mesh, tile)
     if not plan:
         return prev
+    mine = local_ranks(mesh)
     for rank, segs in _batched_plan(plan, prev.rows_per_shard):
-        _refresh_rows(state, prev.w[rank], prev.occ[rank], rank, segs, tile)
-        refresh_stats.dispatches += 1
-    refresh_stats.rows += len(plan)
+        if rank in mine:
+            _refresh_rows(state, prev.w[rank], prev.occ[rank], rank, segs,
+                          tile)
+            refresh_stats.dispatches += 1
+            refresh_stats.rows += len(segs)
     return ShardedTileView(prev.w, prev.occ, mesh, tile)

@@ -93,3 +93,56 @@ def test_cuda_sharded_queries_match_local(cuda_device, bc_mode):
                                     bc_mode=bc_mode))):
         assert validate_incremental_sharded(view, g2, srcs, res, kind,
                                             src_chunk=2, bc_mode=bc_mode)
+
+
+@pytest.mark.cuda
+def test_cuda_dist_gloo_matches_thread_group(cuda_device):
+    """Four processes on one card over gloo (``repro_torch.shard.spawn``),
+    each with its own band, through the kernels: views, cold and delta
+    BFS/SSSP/BC in both modes and the collective counts equal four
+    ThreadGroup ranks of the same card bit for bit, BC included."""
+    import numpy as np
+
+    import dist_ranks as dr
+    from repro_torch.core import PUTE, REME, REMV
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.shard import GraphMesh, spawn
+
+    state = load_rmat_graph(2048, 20000, seed=3, device="cpu")
+    arrays = [x.numpy() for x in state]
+    ops = [(PUTE, 0, 1500, 2.0), (REME, 1, int(state.edst[20])),
+           (PUTE, 600, 7, 1.0), (REMV, 12), (PUTE, 1100, 18, 3.0)]
+    srcs = [0, 1, 5, 12, 700, 1500, 2047, 3]
+    outs = spawn(dr.views_and_queries, 4, device="cuda:0", transport="gloo",
+                 timeout=120.0, join_timeout=600.0, args=(arrays, srcs, ops))
+    on_card = type(state)(*(x.to(cuda_device) for x in state))
+    want = dr.query_set(GraphMesh(["cuda:0"] * 4), on_card, srcs, ops)
+    for r, out in enumerate(outs):
+        assert out["slots"] == [i == r for i in range(4)]
+        assert out["stats"] == want["stats"]
+        for key in ("gathered", "refreshed"):
+            for a, b in zip(out[key], want[key]):
+                assert np.array_equal(a, b), key
+        for phase in ("cold", "delta"):
+            for kind, fields in want[phase].items():
+                for f, b in fields.items():
+                    assert np.array_equal(out[phase][kind][f], b), (
+                        r, phase, kind, f)
+        for kind, (nbytes, calls, _) in want["counts"].items():
+            assert out["counts"][kind][:2] == (nbytes, calls), kind
+        assert out["moved"]["host-staging"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_refuses_ranks_sharing_a_card(cuda_device):
+    """The nccl transport needs one card per rank: two ranks on cuda:0
+    raise on both, naming the gloo transport; nothing falls back."""
+    import dist_ranks as dr
+    from repro_torch.shard import SpawnError, spawn
+
+    with pytest.raises(SpawnError) as ei:
+        spawn(dr.group_ops, 2, device="cuda:0", transport="nccl",
+              timeout=60.0, join_timeout=300.0,
+              args=([torch.ones(3)] * 2, [(0, 1)]))
+    for err in ei.value.errors:
+        assert "one card per rank" in err and "gloo" in err, err
