@@ -219,6 +219,31 @@ exit code:
                  give the trained parameters' prefill logits bit for bit.
                  Prints step times, tokens/s, the model-FLOP share of the
                  bf16 peak and peak memory;
+  3k. LM sharding -- four processes (dist.spawn) on cuda:0 over gloo on a
+                 ("data", "model") = LM_MESH mesh (NCCL with one card per
+                 rank where there are four cards, else it says so): three
+                 sharded steps of reduced granite_moe_1b at batch 4 and 2
+                 and qwen3_32b at batch 4 (f32, capacity 8), each held
+                 against one process's build_train_step on the card whose
+                 loss is the mean over the data rows (the mesh's MoE
+                 load-balance loss is a per-row mean, the reference's
+                 pmean), with the train-step criteria of
+                 tests/test_torch_optim.py (hold_step); an elastic round:
+                 the mesh's checkpoint files byte-equal to one process's
+                 save of the gathered state, restored on the mesh and on
+                 one process, a step from each bit-equal to the step from
+                 memory; granite_moe_1b at full width cut to
+                 LM_SHARD_LAYERS layers through train.main --mesh single
+                 (LM_SHARD_STEPS steps at LM_SHARD_BATCH x LM_SHARD_SEQ,
+                 one sequence per process), one more step with rank 0
+                 under torch.profiler; the dry run's live train_4k cell at
+                 depth 1 and 2.  Every process must hold the same bits; a
+                 failed or hung process fails the phase.  Prints step
+                 walls, tokens/s, the transport's share, rank 0's busy
+                 share, peak memory per process, collective bytes a step
+                 counted and moved, the dry run's counted bytes and the
+                 kernel launches of 3k's processes (none: training runs
+                 attention through "xla");
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
                  launches are those of 3a, 3e, 3g and 3j (summed over 3j's
@@ -3600,6 +3625,477 @@ def report_dist(outs, transport):
             f"{o[mode]['peak'] / 2**30:.2f} GiB" for o in outs))
 
 
+# --------------------------------- phase 3k --------------------------------
+
+# LM sharding on a ("data", "model") mesh of LM_MESH processes on the one card
+# (gloo; NCCL with one card per rank where there are four cards).  Parity:
+# reduced granite_moe_1b and qwen3_32b (float32) at capacity 8 (nothing
+# drops), LM_PARITY_STEPS steps at batch 4 and granite once more at batch 2
+# (the batch replicates over "model"), every step held against one process
+# on the card.  Then granite_moe_1b at full width through train.main
+# --mesh at train_4k's sequence, one sequence per process, LM_SHARD_STEPS
+# steps, its depth cut to LM_SHARD_LAYERS of 24 (the MoE's all-to-alls and
+# psum move about 1.3 GB a layer per process through host memory per step),
+# and the dry run's live cell at depth 1 and 2.
+LM_MESH = (2, 2)
+LM_PARITY = (("granite_moe_1b", 4), ("qwen3_32b", 4), ("granite_moe_1b", 2))
+LM_PARITY_SEQ, LM_PARITY_STEPS, LM_PARITY_CAPACITY = 32, 3, 8.0
+LM_PARITY_KW = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+LM_SHARD_ARCH, LM_SHARD_SEQ, LM_SHARD_BATCH = "granite_moe_1b", 4096, 4
+LM_SHARD_STEPS, LM_SHARD_LAYERS = 3, 4
+LM_DRYRUN_SEQ = None    # the dry run's cell at train_4k's own sequence
+LM_TIMEOUT, LM_JOIN = 300, 900
+
+
+def lm_parity_config(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    # attention through sdpa_chunked, as the trainer runs it: the flash
+    # kernel has no backward
+    cfg = dataclasses.replace(reduced(get_config(arch)), attn_impl="xla")
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=LM_PARITY_CAPACITY)
+    return cfg
+
+
+def rows_mean_model(model, n_rows):
+    """``model`` whose loss is the mean of its loss on each of ``n_rows``
+    equal splits of the batch: what the mesh's step computes, whose
+    load-balance loss is a mean over data rows (the reference's pmean),
+    where no token is 0 (every split then has the same token count)."""
+    import dataclasses
+
+    def loss_fn(params, batch):
+        parts = [{k: v.chunk(n_rows, dim=1 if k == "positions" else 0)[i]
+                  for k, v in batch.items()} for i in range(n_rows)]
+        return sum(model.loss_fn(params, b) for b in parts) / n_rows
+    return dataclasses.replace(model, loss_fn=loss_fn)
+
+
+def lm_state_like(torch, tree):
+    return [t.detach().float().cpu() for t in tree]
+
+
+def lm_shard_rank(mesh, cfg, ckpt_root):
+    """One process of phase 3k (module docstring): the parity steps, the
+    elastic checkpoint round, full-width training through train.main and
+    the dry run's live cell.  ``cfg``: the parent's sizes."""
+    import dataclasses
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer, restore_checkpoint
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import dryrun, mesh as meshlib, steps, train
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import AdamWState, adamw_init
+    from repro_torch.optim.tree import tree_leaves
+
+    globals().update(cfg)
+    meshlib.make_production_mesh(mesh, shape=LM_MESH)
+    dev, card = mesh.device, mesh.device.type == "cuda"
+    tally = mesh.group()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    out = {"parity": [], "rank": mesh.rank}
+
+    def whole(lp, lo, p_sh):
+        return (lm_state_like(torch, tree_leaves(steps.gather_state(lp, p_sh))),
+                lm_state_like(torch, tree_leaves(steps.gather_state(lo.m, p_sh))),
+                lm_state_like(torch, tree_leaves(steps.gather_state(lo.v, p_sh))))
+
+    for arch, batch in LM_PARITY:
+        pcfg = lm_parity_config(arch)
+        model = get_model(pcfg)
+        p0 = tree_map_to(torch, model.init(torch.Generator().manual_seed(0)),
+                         dev)
+        o0 = adamw_init(p0, pcfg.moment_dtype)
+        p_sh, o_sh = steps.train_state_shardings(model, mesh, p0, o0)
+        lp, lo = steps.local_state(p0, p_sh), steps.local_state(o0, o_sh)
+        del p0, o0
+        step = steps.build_train_step(model, mesh=mesh, **LM_PARITY_KW)
+        ds = SyntheticTokens(pcfg.vocab_size, LM_PARITY_SEQ, batch, seed=1)
+        run = {"arch": arch, "batch": batch, "losses": [], "states": []}
+        for i in range(LM_PARITY_STEPS):
+            lp, lo, met = step(lp, lo, shard_batch(ds.batch_at(i), mesh=mesh))
+            run["losses"].append(float(met["loss"]))
+            run["states"].append(whole(lp, lo, p_sh))
+        out["parity"].append(run)
+        if (arch, batch) == LM_PARITY[0]:
+            # The elastic round: save from the mesh; rank 0 also saves the
+            # gathered state alone; restore on the mesh and step again.
+            state, sh = {"params": lp, "opt": lo}, {"params": p_sh,
+                                                    "opt": o_sh}
+            mdir = os.path.join(ckpt_root, "mesh")
+            Checkpointer(mdir).save(LM_PARITY_STEPS, state, blocking=True,
+                                    mesh=mesh, shardings=sh)
+            gathered = steps.gather_state(state, sh)
+            if mesh.rank == 0:
+                Checkpointer(os.path.join(ckpt_root, "one")).save(
+                    LM_PARITY_STEPS, gathered, blocking=True)
+            mesh.barrier()
+            pspecs = model.specs()
+            specs = {"params": pspecs, "opt": AdamWState(
+                step=meshlib.P(), m=pspecs, v=pspecs)}
+            back = restore_checkpoint(mdir, LM_PARITY_STEPS, gathered,
+                                      device=dev, mesh=mesh, specs=specs)
+            b = shard_batch(ds.batch_at(LM_PARITY_STEPS), mesh=mesh)
+            a1, ao, am = step(lp, lo, b)
+            b1, bo, bm = step(back["params"], back["opt"], b)
+            out["elastic"] = {
+                "restored_equal": all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves(back), tree_leaves(state))),
+                "step_equal": float(am["loss"]) == float(bm["loss"]) and all(
+                    torch.equal(x, y) for x, y in zip(
+                        tree_leaves((a1, ao)), tree_leaves((b1, bo)))),
+                "loss": float(am["loss"])}
+            del gathered, back, a1, ao, b1, bo
+        del lp, lo
+    if card:
+        torch.cuda.empty_cache()
+
+    # granite_moe_1b at full width through the trainer on the mesh
+    real = train.get_config
+    train.get_config = lambda a: dataclasses.replace(
+        real(a), num_layers=LM_SHARD_LAYERS)
+    try:
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t_before = mesh.transport_s
+        r = train.main(["--arch", LM_SHARD_ARCH, "--steps",
+                        str(LM_SHARD_STEPS), "--seq", str(LM_SHARD_SEQ),
+                        "--batch", str(LM_SHARD_BATCH), "--mesh", "single",
+                        "--mesh-shape", "x".join(map(str, LM_MESH)),
+                        "--log-every", "1", "--device", dev.type], mesh=mesh)
+        out["train"] = {
+            "losses": r.losses, "step_s": r.step_s,
+            "tokens_per_s": r.tokens_per_s,
+            "peak": r.peak_bytes or 0, "collectives": r.collectives,
+            "moved": r.moved, "transport_s": mesh.transport_s - t_before,
+            "layers": r.cfg.num_layers, "params": sum(
+                t.numel() for t in tree_leaves(param_shapes(
+                    get_model(r.cfg))))}
+        if card:   # one more step, rank 0's under torch.profiler
+            step_fn = train.make_train_step(get_model(r.cfg),
+                                            LM_SHARD_STEPS + 1, 3e-4,
+                                            mesh=mesh)
+            ds = SyntheticTokens(r.cfg.vocab_size, LM_SHARD_SEQ,
+                                 LM_SHARD_BATCH, seed=0)
+            b = shard_batch(ds.batch_at(LM_SHARD_STEPS), mesh=mesh)
+            out["train"]["profiled"] = profiled_step(
+                torch, lambda: step_fn(r.params, r.opt, b), mesh.rank == 0)
+        del r
+    finally:
+        train.get_config = real
+    if card:
+        torch.cuda.empty_cache()
+
+    # the dry run's live cell: depth 1 and 2 at full width, extrapolated
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(LM_SHARD_ARCH, "train_4k", mesh, out_dir=None,
+                          seq=LM_DRYRUN_SEQ)
+    out["dryrun"] = {k: rec[k] for k in ("depth1", "depth2", "full",
+                                          "units", "reduced", "batch",
+                                          "seq")}
+    out["dryrun"]["wall"] = time.perf_counter() - t0
+    kernels = kernel_launches()
+    out["kernel_launches"] = kernels
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def profiled_step(torch, fn, profile: bool) -> dict:
+    """``fn()`` (a train step), under ``torch.profiler`` where ``profile``:
+    its wall, the summed device time of its kernels and of its copies,
+    and its kernel launches, from the raw kineto events (the event tree
+    of a step's ~10^5 ops would take longer to build than the step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not profile:
+        fn()
+        torch.cuda.synchronize()
+        return {"wall": time.perf_counter() - t0}
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.profiler.kineto_results.events()
+    cuda = [e for e in events if e.device_type() == DeviceType.CUDA]
+    copies = [e for e in cuda if e.name().startswith(("Memcpy", "Memset"))]
+    kernel_ns = sum(e.end_ns() - e.start_ns() for e in cuda) - sum(
+        e.end_ns() - e.start_ns() for e in copies)
+    return {"wall": wall, "kernel_s": kernel_ns / 1e9,
+            "copy_s": sum(e.end_ns() - e.start_ns() for e in copies) / 1e9,
+            "kernels": len(cuda) - len(copies)}
+
+
+def tree_map_to(torch, tree, dev):
+    from repro_torch.optim.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from repro_torch.kernels import bool_mm, count_mm, flash_attention
+    from repro_torch.kernels import minplus_mm
+    out = {}
+    for mod in (bool_mm, count_mm, minplus_mm, flash_attention):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def lm_shard_cfg() -> dict:
+    names = ("LM_MESH", "LM_PARITY", "LM_PARITY_SEQ", "LM_PARITY_STEPS",
+             "LM_PARITY_CAPACITY", "LM_PARITY_KW", "LM_SHARD_ARCH",
+             "LM_SHARD_SEQ", "LM_SHARD_BATCH", "LM_SHARD_STEPS",
+             "LM_SHARD_LAYERS", "LM_DRYRUN_SEQ")
+    return {k: globals()[k] for k in names}
+
+
+# AdamW's step divides each gradient element by its own RMS: where that
+# RMS is near eps (1e-8) the step is lr * g / (|g| + eps) of a near-
+# cancelling sum, whose f32 reassociation (the mesh sums in another order)
+# moves the step by a sizeable share of lr.  hold_step holds the parameter
+# change of an element whose sqrt(v_hat) is below ILL_RMS (and not 0: a
+# zero gradient steps by the weight decay alone) through its moments only.
+ILL_RMS = 1e-6
+
+
+def hold_step(np, what, got, want, step, ill_before=None):
+    """tests/test_torch_optim.py::test_train_step_matches_reference's
+    criteria: the loss to rtol 1e-5; each moment leaf to rtol 1e-4 and an
+    atol of 1e-4 of its largest; each parameter leaf's change from p0 to
+    5% of its largest change (where AdamW's step is well conditioned,
+    ILL_RMS), all but a thousandth of its elements to rtol 1e-4 + 1e-3 of
+    that change; both bounds skip the elements ill-conditioned at this step
+    or an earlier one (ILL_RMS; ``ill_before``, the masks of the step
+    before), held by their moments.  Returns the masks."""
+    (gl, (gp, gm, gv)), (wl, (wp, wm, wv)), p0 = got, want[:2], want[2]
+    np.testing.assert_allclose(gl, wl, rtol=1e-5, err_msg=f"{what} loss")
+    for g, w in zip(gm + gv, wm + wv):
+        g, w = g.numpy(), w.numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(),
+                                   err_msg=f"{what} moment")
+    ill = []
+    bc2 = 1.0 - 0.95 ** (step + 1)
+    for i, (g, w, p, v) in enumerate(zip(gp, wp, p0, wv)):
+        dg, dw = (g - p).numpy(), (w - p).numpy()
+        top = np.abs(dw).max()
+        v = v.numpy()
+        bad = (v > 0) & (np.sqrt(v / bc2) < ILL_RMS)
+        if ill_before is not None:
+            bad |= ill_before[i]
+        ill.append(bad)
+        ok = ~bad
+        np.testing.assert_allclose(dg[ok], dw[ok], rtol=0, atol=0.05 * top,
+                                   err_msg=f"{what} param change")
+        off = ok & (np.abs(dg - dw) > 1e-4 * np.abs(dw) + 1e-3 * top)
+        if off.sum() > 1e-3 * off.size:
+            raise AssertionError(f"{what}: {int(off.sum())} of {off.size} "
+                                 "parameter elements off")
+    return ill
+
+
+def lm_parity_reference(torch, np, arch, batch, n_rows):
+    """One process on the card: build_train_step on the rows-mean loss,
+    LM_PARITY_STEPS steps from the same seed; the loss and whole state
+    after each, and the initial parameters."""
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import tree_leaves
+
+    cfg = lm_parity_config(arch)
+    model = rows_mean_model(get_model(cfg), n_rows)
+    p = tree_map_to(torch, model.init(torch.Generator().manual_seed(0)), DEV)
+    p0 = lm_state_like(torch, tree_leaves(p))
+    o = adamw_init(p, cfg.moment_dtype)
+    step = steps.build_train_step(model, **LM_PARITY_KW)
+    ds = SyntheticTokens(cfg.vocab_size, LM_PARITY_SEQ, batch, seed=1)
+    out = []
+    for i in range(LM_PARITY_STEPS):
+        p, o, met = step(p, o, shard_batch(ds.batch_at(i), device=DEV))
+        out.append((float(met["loss"]),
+                    (lm_state_like(torch, tree_leaves(p)),
+                     lm_state_like(torch, tree_leaves(o.m)),
+                     lm_state_like(torch, tree_leaves(o.v)))))
+    elastic = None
+    if (arch, batch) == LM_PARITY[0]:
+        b = shard_batch(ds.batch_at(LM_PARITY_STEPS), device=DEV)
+        elastic = (step, {"params": p, "opt": o}, b)
+    return out, p0, elastic
+
+
+def lm_tree_from(torch, like, state):
+    """``like``'s train state ({"params", "opt"}) with the leaves of
+    ``state`` (params, m, v lists, float32 on the host) in its dtypes on
+    the card, the step counter ``LM_PARITY_STEPS``."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.tree import tree_flatten
+
+    def put(tree, leaves):
+        old, unflatten = tree_flatten(tree)
+        return unflatten([x.to(device=DEV, dtype=o.dtype)
+                          for x, o in zip(leaves, old)])
+    p, m, v = state
+    o = like["opt"]
+    return {"params": put(like["params"], p), "opt": AdamWState(
+        step=torch.full_like(o.step, LM_PARITY_STEPS), m=put(o.m, m),
+        v=put(o.v, v))}
+
+
+def lm_shard_phase(torch, np, timings):
+    """Phase 3k (module docstring).  Every failure fails the phase: a
+    failed or hung process raises SpawnError."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.shard import spawn
+
+    n = math.prod(LM_MESH)
+    runs = [("gloo", f"{DEV}:0" if DEV == "cuda" else DEV)]
+    if DEV == "cuda" and torch.cuda.device_count() >= n:
+        runs.append(("nccl", None))
+    else:
+        log(f"  NCCL not run: it needs one card per rank, {n} cards; this "
+            f"machine has {torch.cuda.device_count() if DEV == 'cuda' else 0}")
+    full = get_config(LM_SHARD_ARCH)
+    log(f"  {LM_SHARD_ARCH} at full width (d {full.d_model}, "
+        f"{full.num_heads}/{full.num_kv_heads} heads, {full.num_experts} "
+        f"experts, ff {full.d_ff}, vocab {full.vocab_size}); depth cut to "
+        f"{LM_SHARD_LAYERS} of {full.num_layers} layers; batch 256 x "
+        f"{LM_SHARD_SEQ} cut to {LM_SHARD_BATCH} x {LM_SHARD_SEQ} (one "
+        f"sequence per process)")
+    for transport, device in runs:
+        root = tempfile.mkdtemp(prefix="chip_smoke_3k_")
+        try:
+            t0 = time.perf_counter()
+            outs = spawn(lm_shard_rank, n, device=device, transport=transport,
+                         timeout=LM_TIMEOUT, join_timeout=LM_JOIN,
+                         args=(lm_shard_cfg(), root))
+            timings[f"3k {transport} (spawn to join)"] = \
+                time.perf_counter() - t0
+            lm_shard_check(torch, np, outs, root, transport)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def lm_shard_check(torch, np, outs, root, transport):
+    """3k's checks and lines, in this process, on what the mesh's processes
+    returned."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.optim.tree import tree_leaves
+
+    r0 = outs[0]
+    for o in outs[1:]:      # the same bits in every process
+        for a, b in zip(o["parity"], r0["parity"]):
+            if a["losses"] != b["losses"] or not all(
+                    torch.equal(x, y) for s1, s2 in zip(a["states"],
+                                                        b["states"])
+                    for t1, t2 in zip(s1, s2) for x, y in zip(t1, t2)):
+                raise AssertionError(f"3k {transport}: rank {o['rank']}'s "
+                                     "parity state differs from rank 0's")
+    for run in r0["parity"]:
+        arch, batch = run["arch"], run["batch"]
+        want, p0, elastic = lm_parity_reference(torch, np, arch, batch,
+                                                LM_MESH[0])
+        ill = None
+        for i, (got, exp) in enumerate(zip(zip(run["losses"],
+                                               run["states"]), want)):
+            ill = hold_step(np, f"3k {transport} {arch} batch {batch} "
+                            f"step {i}", got, (*exp, p0), i, ill)
+        ill = sum(int(m.sum()) for m in ill)
+        size = sum(m.numel() for m in p0)
+        log(f"  {transport} parity {arch} (reduced, f32, capacity "
+            f"{LM_PARITY_CAPACITY}) batch {batch}: {LM_PARITY_STEPS} steps "
+            f"against one process's build_train_step on the rows-mean loss: "
+            f"losses {[round(x, 6) for x in run['losses']]} vs "
+            f"{[round(w[0], 6) for w in want]}; moments and parameter "
+            f"changes within the train-step criteria ({ill} of {size} "
+            f"elements ill-conditioned, sqrt(v_hat) < {ILL_RMS} at some "
+            f"step, held by their moments)")
+        if elastic is not None:
+            # one process: the mesh's files restored, against the mesh's
+            # gathered state in memory, and one step from each
+            step, like, b = elastic
+            mem = lm_tree_from(torch, like, run["states"][-1])
+            el = r0["elastic"]
+            files = sorted(os.listdir(os.path.join(
+                root, "mesh", f"step_{LM_PARITY_STEPS:08d}")))
+            same_files = all(open(os.path.join(
+                root, "mesh", f"step_{LM_PARITY_STEPS:08d}", f), "rb").read()
+                == open(os.path.join(root, "one",
+                                     f"step_{LM_PARITY_STEPS:08d}", f),
+                        "rb").read()
+                for f in files if f != "manifest.json")
+            back = restore_checkpoint(os.path.join(root, "mesh"),
+                                      LM_PARITY_STEPS, like, device=DEV)
+            same_state = all(torch.equal(x, y) for x, y in zip(
+                tree_leaves((back["params"], back["opt"].m, back["opt"].v)),
+                tree_leaves((mem["params"], mem["opt"].m, mem["opt"].v))))
+            a1, _, am = step(mem["params"], mem["opt"], b)
+            b1, _, bm = step(back["params"], back["opt"], b)
+            one_ok = same_state and float(am["loss"]) == float(
+                bm["loss"]) and all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves(a1), tree_leaves(b1)))
+            log(f"  {transport} elastic: the mesh's files == one process's "
+                f"save of the gathered state ({len(files)} files): "
+                f"{same_files}; restored on the mesh == the state: "
+                f"{el['restored_equal']}; a step from it == the step from "
+                f"memory: {el['step_equal']}; restored on one process, a "
+                f"step == the step from memory: {one_ok}")
+            if not (same_files and el["restored_equal"] and el["step_equal"]
+                    and one_ok):
+                raise AssertionError(f"3k {transport}: the elastic "
+                                     "checkpoint round failed")
+    tr = r0["train"]
+    tokens = LM_SHARD_BATCH * LM_SHARD_SEQ
+    med = statistics.median(tr["step_s"][1:])
+    log(f"  {transport} {LM_SHARD_ARCH} {tr['layers']} layers "
+        f"({tr['params'] / 1e9:.3f} B params) on a "
+        f"{'x'.join(map(str, LM_MESH))} mesh: losses "
+        f"{[round(x, 4) for x in tr['losses']]}; step s "
+        f"{[round(x, 2) for x in tr['step_s']]}; median {med:.2f} s "
+        f"({tokens / med:.0f} tokens/s; {tr['tokens_per_s']:.0f} over the "
+        f"run); in the transport {tr['transport_s']:.2f} s of "
+        f"{sum(tr['step_s']):.2f} s (rank 0)")
+    log("    peak device memory per process: " + ", ".join(
+        f"{o['train']['peak'] / 2**30:.2f} GiB" for o in outs))
+    pr = tr.get("profiled")
+    if pr and "kernel_s" in pr:
+        log(f"    one more step, rank 0 under torch.profiler: {pr['wall']:.2f}"
+            f" s; its kernels {pr['kernel_s']:.3f} s of device time "
+            f"({pr['kernels']} launches; busy {pr['kernel_s'] / pr['wall']:.3f}"
+            f"), its copies {pr['copy_s']:.3f} s")
+    per = LM_SHARD_STEPS
+    log(f"    collective bytes a step (rank 0), counted: " + ", ".join(
+        f"{k} {v / per:.4g}" for k, v in sorted(tr["collectives"].items())
+        if v) + "; moved by the transport: " + ", ".join(
+        f"{k} {v / per:.4g}" for k, v in sorted(tr["moved"].items()) if v))
+    if not all(math.isfinite(x) for x in tr["losses"]):
+        raise AssertionError(f"3k: non-finite loss {tr['losses']}")
+    dr = r0["dryrun"]
+    log(f"  {transport} dry run, {LM_SHARD_ARCH} train_4k at full width, "
+        f"batch {dr['reduced']['batch'][0]} cut to {dr['batch']} x "
+        f"{dr['seq']} ({dr['wall']:.1f} s): counted bytes a rank, depth 1 "
+        f"{dr['depth1']['collectives']}, depth 2 "
+        f"{dr['depth2']['collectives']}, extrapolated to {dr['units']} "
+        f"layers {dr['full']['collectives']}")
+    launched = {k: v for o in outs for k, v in o["kernel_launches"].items()
+                if v}
+    log(f"  {transport} kernel launches in 3k's processes: "
+        f"{launched or 'none'} (training runs attention through 'xla')")
+    log(f"  nvidia-smi: {nvidia_smi()}")
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace (3i's training
     # runs under torch.use_deterministic_algorithms); set before the first
@@ -3739,6 +4235,13 @@ def main() -> int:
     launches["flash_attention"] += train_phase(torch, timings)
     flash_row["gemma3_llama4"] = lm2_rows
     timings["LM 3i phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log(f"== phase 3k: LM sharding ({LM_SHARD_ARCH}, "
+        f"{'x'.join(map(str, LM_MESH))} (data, model) mesh of processes)")
+    t0 = time.perf_counter()
+    lm_shard_phase(torch, np, timings)
+    timings["LM shard phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

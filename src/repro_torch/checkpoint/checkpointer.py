@@ -23,9 +23,15 @@ the caller's tree names.  bfloat16 and float8_e5m2 leaves, which numpy has
 no type for, are written as the reference writes them (its ``ml_dtypes``
 arrays): the raw bits under the ``.npy`` descr ``'<V2'`` / ``'<f1'``, and
 ``"bfloat16"`` / ``"float8_e5m2"`` as the manifest's dtype; they are read
-back as raw bits and viewed as the torch dtype.  The reference's
-``mesh=``/``specs=`` resharding of an LM train state onto a ``("data",
-"model")`` mesh is not ported yet (ROADMAP.md, queue 1, slice 4).
+back as raw bits and viewed as the torch dtype.
+
+On a mesh of processes (``launch.mesh``) a restore with ``mesh=`` /
+``specs=`` reads each leaf memory-mapped and keeps only this rank's block
+(elastic: the files do not record the mesh that wrote them, so a state
+saved by one process restores onto a mesh and back), and a
+:class:`Checkpointer` save from a mesh gathers each leaf whole; rank 0
+alone writes, the files byte-equal to a one-process save of the same
+state, and the others wait at a barrier where the writes must be done.
 """
 from __future__ import annotations
 
@@ -141,17 +147,22 @@ def _save_leaf(path: str, arr) -> str:
     return name
 
 
-def _load_leaf(path: str, entry: dict):
+def _load_leaf(path: str, entry: dict, mmap: bool = False):
     """A leaf as ``_save_leaf`` (or the reference) wrote it: a numpy array,
-    or a ``RawLeaf`` for a dtype numpy cannot hold."""
+    or a ``RawLeaf`` for a dtype numpy cannot hold; ``mmap``: mapped, not
+    read."""
     dtype = _RAW_BY_NAME.get(entry["dtype"])
     if dtype is None:
-        return np.load(path)
+        return np.load(path, mmap_mode="r" if mmap else None)
     with open(path, "rb") as f:
         version = np.lib.format.read_magic(f)
         size = int.from_bytes(f.read(2 if version == (1, 0) else 4), "little")
         header = ast.literal_eval(f.read(size).decode("latin1"))
-        bits = np.fromfile(f, dtype=RAW_DTYPES[dtype][2])
+        if mmap:
+            bits = np.memmap(f, dtype=RAW_DTYPES[dtype][2], mode="r",
+                             offset=f.tell(), shape=tuple(header["shape"]))
+        else:
+            bits = np.fromfile(f, dtype=RAW_DTYPES[dtype][2])
     return RawLeaf(bits.reshape(header["shape"]), dtype)
 
 
@@ -159,8 +170,12 @@ def _bits(arr) -> np.ndarray:
     return arr.bits if isinstance(arr, RawLeaf) else arr
 
 
-def _tensor(arr, like, dev) -> torch.Tensor:
-    """A loaded leaf as a tensor of ``like``'s dtype on ``dev``."""
+def _tensor(arr, like, dev, block=None) -> torch.Tensor:
+    """A loaded leaf (or its ``block``, a tuple of slices) as a tensor of
+    ``like``'s dtype on ``dev``."""
+    if block is not None:   # copied out of the mapped file
+        arr = (RawLeaf(np.array(arr.bits[block]), arr.dtype)
+               if isinstance(arr, RawLeaf) else np.array(arr[block]))
     if isinstance(arr, RawLeaf):
         return arr.tensor().to(device=dev, dtype=like.dtype)
     if isinstance(like, torch.Tensor) and like.dtype in RAW_DTYPES:
@@ -248,15 +263,28 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     tensors as :func:`like_from_manifest` builds, or numpy arrays); every
     leaf comes back as a tensor on ``device`` (default ``"cuda"``, which
     raises without CUDA).  Only the leaves ``tree_like`` names are read.
-    ``mesh``/``specs`` are not ported yet.
+    With ``mesh`` (a mesh of processes) and ``specs`` (a tree of
+    ``launch.mesh.P`` like ``tree_like``; ``None`` leaves replicate), each
+    leaf is mapped, not read, and only this rank's block is copied out.
     """
     from repro_torch.core.graph_state import resolve_device
 
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(mesh=, specs=) is not ported yet "
-            "(ROADMAP.md, queue 1, slice 4)")
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore_checkpoint: mesh= and specs= go together")
     dev = resolve_device(device)
+    blocks = {}
+    if mesh is not None:
+        from repro_torch.launch.mesh import Sharding, sanitize_spec
+
+        for path, like in _leaves(tree_like):
+            spec = specs
+            for key in path:
+                spec = getattr(spec, key) if hasattr(spec, "_fields") else \
+                    spec[int(key) if isinstance(spec, (list, tuple))
+                         else key]
+            shape = tuple(like.shape)
+            blocks[_path_str(path)] = Sharding(
+                mesh, sanitize_spec(spec, shape, mesh)).index(shape)
     names = [_path_str(path) for path, _ in _leaves(tree_like)]
     for _ in range(max_retries):
         m1 = read_manifest(ckpt_dir, step)
@@ -265,7 +293,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
         ok = True
         for name in names:
             entry = m1["leaves"][name]
-            arr = _load_leaf(os.path.join(d, entry["file"]), entry)
+            arr = _load_leaf(os.path.join(d, entry["file"]), entry,
+                             mmap=mesh is not None and not verify)
             if verify and "sha1" in entry and (_checksum(_bits(arr))
                                                != entry["sha1"]):
                 ok = False          # leaf changed under us (ecnt mismatch)
@@ -277,8 +306,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     else:
         raise RuntimeError("checkpoint kept changing during restore")
 
-    return _rebuild(tree_like,
-                    lambda name, like: _tensor(loaded[name], like, dev))
+    return _rebuild(tree_like, lambda name, like: _tensor(
+        loaded[name], like, dev, blocks.get(name)))
 
 
 class Checkpointer:
@@ -293,10 +322,27 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
         os.makedirs(ckpt_dir, exist_ok=True)
 
-    def save(self, step: int, tree, blocking: bool = False):
+    def save(self, step: int, tree, blocking: bool = False, *, mesh=None,
+             shardings=None):
+        """Save ``tree`` (on a background thread unless ``blocking``).
+        With ``mesh`` the leaves are this rank's blocks of the tree whose
+        :class:`~repro_torch.launch.mesh.Sharding` tree is ``shardings``:
+        every rank gathers each leaf whole (collective), rank 0 alone
+        writes, and a blocking save ends at a barrier."""
         self.version += 1
         version = self.version
-        host_tree = _rebuild(tree, lambda _name, leaf: _host(leaf))
+        if mesh is None:
+            host_tree = _rebuild(tree, lambda _name, leaf: _host(leaf))
+        else:   # one leaf whole at a time, kept on rank 0's host
+            from repro_torch.optim.tree import tree_map
+            def whole(t, sh):
+                t = sh.gather(t)    # collective: every rank
+                return _host(t) if mesh.rank == 0 else None
+            host_tree = tree_map(whole, tree, shardings)
+            if mesh.rank != 0:
+                if blocking:
+                    mesh.barrier()
+                return
         self.wait()
 
         def work():
@@ -305,14 +351,20 @@ class Checkpointer:
 
         if blocking:
             work()
+            if mesh is not None:
+                mesh.barrier()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
-    def wait(self):
+    def wait(self, mesh=None):
+        """The pending save is written (with ``mesh``: on every rank, by
+        rank 0, a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if mesh is not None:
+            mesh.barrier()
 
     def _gc(self):
         steps = sorted(

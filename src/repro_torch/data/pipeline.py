@@ -4,7 +4,7 @@ Batches are a pure function of (seed, step), so a restarted trainer resumes
 on exactly the data it would have seen: checkpoint and restart never
 replay or skip tokens.  ``SyntheticTokens`` is the reference's numpy code,
 copied, so both packages draw the same tokens; ``shard_batch`` puts a batch
-on one device.
+on one device, or this process's rows of it on a mesh.
 """
 from __future__ import annotations
 
@@ -40,13 +40,29 @@ class SyntheticTokens:
             step += 1
 
 
-def shard_batch(batch: dict, mesh=None, device="cuda") -> dict:
+class LocalBatch(dict):
+    """This process's rows of a batch on a mesh; ``shardings`` holds each
+    entry's :class:`~repro_torch.launch.mesh.Sharding` (which rows)."""
+
+    def __init__(self, tensors: dict, shardings: dict):
+        super().__init__(tensors)
+        self.shardings = shardings
+
+
+def shard_batch(batch: dict, mesh=None, device="cuda"):
     """A host batch as tensors on ``device`` (default ``"cuda"``, which
-    raises without CUDA).  Placing it on a mesh waits for LM sharding."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch(mesh=...): placing a batch on a mesh waits for LM "
-            "sharding (ROADMAP.md, queue 1, slice 4)")
-    dev = resolve_device(device)
-    return {k: torch.from_numpy(np.asarray(v)).to(dev)
-            for k, v in batch.items()}
+    raises without CUDA).  With ``mesh`` (a mesh of processes), this
+    process's rows only, as training lays the batch out
+    (``batch_shardings(full_batch=True)``: over every axis that divides
+    it; M-RoPE ``positions`` keep their batch on axis 1), in a
+    :class:`LocalBatch` on the mesh's device."""
+    if mesh is None:
+        dev = resolve_device(device)
+        return {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in batch.items()}
+    from repro_torch.launch.mesh import batch_shardings
+
+    arrays = {k: np.asarray(v) for k, v in batch.items()}
+    sh = batch_shardings(arrays, mesh, full_batch=True)
+    return LocalBatch({k: torch.from_numpy(np.ascontiguousarray(
+        sh[k].local(v))).to(mesh.device) for k, v in arrays.items()}, sh)

@@ -1,0 +1,234 @@
+"""The dry run's counterpart (port of ``repro.launch.dryrun``): what each
+rank of a mesh holds and moves, per (arch x shape x mesh) cell.
+
+The reference lowers and compiles every cell against 512 placeholder
+devices and reads XLA's memory and cost analyses.  The port has no
+compiler to ask, so the cell splits in two:
+
+  * :func:`layout_cell` needs no device: from the parameter, moment,
+    batch and cache shapes (``meta`` tensors) and the model's specs on
+    the mesh's sizes it gives each rank's local shapes and bytes -- what
+    the reference's ``memory_analysis`` argument bytes stand for.
+  * :func:`run_cell` runs one train step of a train cell at depth 1 and 2
+    (``scale_depth``, ``unit_count``) on a live mesh of processes, reads
+    the collective bytes per op the mesh counted (the reference's
+    ``parse_collective_bytes`` keys: result bytes of each op, one rank's)
+    and extrapolates them to full depth as the reference does (per-unit
+    delta x true depth).  The batch is cut to one sequence per process;
+    the cut is recorded.  Prefill and decode cells wait for the sharded
+    serving path (``NotImplementedError``).
+
+The CLI writes every cell's layout to ``experiments/dryrun_torch/``
+(git-ignored); ``run_cell`` is called on a live mesh (``chip_smoke.py``
+phase 3k, the tests):
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ARCHS, SHAPES, get_config, shapes_for
+from repro_torch.data import SyntheticTokens, shard_batch
+from repro_torch.models import get_model, param_shapes
+from repro_torch.optim import adamw_init
+
+from . import mesh as meshlib
+from . import steps as steplib
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "experiments", "dryrun_torch")
+
+MESHES = {"pod16x16": (16, 16), "pod2x16x16": (2, 16, 16),
+          "mesh2x2": (2, 2)}
+
+
+def mesh_layout(shape) -> meshlib.MeshLayout:
+    return meshlib.make_production_mesh(multi_pod=len(shape) == 3,
+                                        shape=shape)
+
+
+def scale_depth(cfg, d: int):
+    """Same-architecture config with depth = d 'units' (see unit_count)."""
+    kw = {}
+    if cfg.family == "hybrid":
+        kw["num_layers"] = d * cfg.attn_every + cfg.num_layers \
+            % cfg.attn_every
+    elif cfg.family in ("encdec", "audio"):
+        kw["num_layers"] = d
+        kw["encoder_layers"] = d
+    else:
+        kw["num_layers"] = d
+    return dataclasses.replace(cfg, **kw)
+
+
+def unit_count(cfg) -> int:
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
+def batch_shapes(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The inputs of a cell as ``meta`` tensors (``repro.models.
+    input_specs``): modality frontends stubbed, M-RoPE positions, Whisper's
+    frames."""
+    def t(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    s = seq if kind != "decode" else 1
+    tokens_s = s
+    out = {"tokens": t((batch, tokens_s))}
+    if cfg.mrope_sections:
+        out["positions"] = t((3, batch, s - 1 if kind == "train" else s))
+    if cfg.family in ("encdec", "audio") and kind != "decode":
+        out["frames"] = t((batch, cfg.encoder_seq, cfg.d_model),
+                          torch.float32)
+    return out
+
+
+def _local(tree, shardings) -> tuple:
+    """(bytes one rank holds, its local shape per leaf path)."""
+    total, shapes = 0, {}
+
+    def one(path, t, sh):
+        nonlocal total
+        if isinstance(t, torch.Tensor):
+            shape = sh.local_shape(tuple(t.shape))
+            total += math.prod(shape) * t.element_size()
+            shapes[path] = list(shape)
+
+    def walk(path, t, sh):
+        if isinstance(t, dict):
+            for k in t:
+                walk(f"{path}/{k}" if path else k, t[k], sh[k])
+        elif isinstance(t, (list, tuple)):
+            for i, (a, b) in enumerate(zip(t, sh)):
+                walk(f"{path}/{i}", a, b)
+        else:
+            one(path, t, sh)
+    walk("", tree, shardings)
+    return total, shapes
+
+
+def layout_cell(arch: str, shape_name: str, mesh_shape) -> dict:
+    """Each rank's local shapes and bytes of one cell (no device)."""
+    mesh = mesh_layout(mesh_shape)
+    name = "pod" + "x".join(map(str, mesh_shape)) if mesh_shape in (
+        (16, 16), (2, 16, 16)) else "mesh" + "x".join(map(str, mesh_shape))
+    cfg = get_config(arch)
+    rec = {"arch": arch, "shape": shape_name, "mesh": name,
+           "n_ranks": mesh.size}
+    if shape_name not in shapes_for(cfg):
+        return {**rec, "skipped": True,
+                "reason": "long_500k needs sub-quadratic attention"}
+    seq, gbatch, kind = SHAPES[shape_name]
+    model = get_model(cfg)
+    params = param_shapes(model)
+    p_sh = meshlib.sanitize_shardings(model.specs(), params, mesh)
+    rec["params_bytes"], rec["params_local"] = _local(params, p_sh)
+    full_batch = kind == "train"
+    batch = batch_shapes(cfg, kind, gbatch, seq)
+    b_sh = meshlib.batch_shardings(batch, mesh, full_batch=full_batch)
+    rec["batch_bytes"], rec["batch_local"] = _local(batch, b_sh)
+    rec["batch_spec"] = {k: list(v.spec) for k, v in b_sh.items()}
+    if kind == "train":
+        moments = adamw_init(params, cfg.moment_dtype).m
+        rec["moments_bytes"] = 2 * _local(moments, p_sh)[0]
+        rec["argument_bytes"] = (rec["params_bytes"] + rec["moments_bytes"]
+                                 + rec["batch_bytes"] + 4)   # + step
+    else:
+        cache = model.init_cache(gbatch, seq, device="meta")
+        c_sh = steplib.cache_shardings(model, mesh, cache)
+        rec["cache_bytes"], rec["cache_local"] = _local(cache, c_sh)
+        rec["argument_bytes"] = (rec["params_bytes"] + rec["cache_bytes"]
+                                 + rec["batch_bytes"])
+    rec["skipped"] = False
+    return rec
+
+
+def run_cell(arch: str, shape_name: str, mesh, *, cfg=None,
+             seq: Optional[int] = None, out_dir: Optional[str] = OUT_DIR,
+             depths=(1, 2)) -> dict:
+    """One train step of a train cell at each depth of ``depths`` on the
+    live ``mesh`` (every rank calls it): the collective bytes per op the
+    mesh counted, each rank's, and their extrapolation to full depth.
+    ``cfg`` replaces the arch's config (a reduced one on the CPU), ``seq``
+    the cell's sequence length."""
+    cfg = cfg or get_config(arch)
+    seq_full, gbatch, kind = SHAPES[shape_name]
+    if kind != "train":
+        raise NotImplementedError(
+            f"{shape_name}: the dry run's {kind} cells need sharded "
+            "prefill and decode (ROADMAP.md, queue 1, the next slice)")
+    seq = seq or seq_full
+    batch = mesh.size                   # one sequence per process
+    rec = {"arch": arch, "shape": shape_name,
+           "mesh": "x".join(map(str, mesh.shape)), "n_ranks": mesh.size,
+           "transport": mesh.transport, "units": unit_count(cfg),
+           "seq": seq, "batch": batch,
+           "reduced": {"batch": [gbatch, batch]}}
+    if seq != seq_full:
+        rec["reduced"]["seq"] = [seq_full, seq]
+    tally = mesh.group()
+    for d in depths:
+        cfg_d = dataclasses.replace(scale_depth(cfg, d), attn_impl="xla")
+        model = get_model(cfg_d)
+        params = model.init(torch.Generator(device=mesh.device)
+                            .manual_seed(0))
+        p_sh, o_sh = steplib.train_state_shardings(
+            model, mesh, params, adamw_init(param_shapes(model),
+                                            cfg_d.moment_dtype))
+        params = steplib.local_state(params, p_sh)
+        opt = adamw_init(params, cfg_d.moment_dtype)
+        step = steplib.build_train_step(model, mesh=mesh)
+        ds = SyntheticTokens(cfg_d.vocab_size, seq, batch, seed=0)
+        b = shard_batch(ds.batch_at(0), mesh=mesh)
+        before = dict(tally.bytes)
+        step(params, opt, b)
+        rec[f"depth{d}"] = {"collectives": {
+            k: v - before.get(k, 0) for k, v in tally.bytes.items()
+            if v - before.get(k, 0)}}
+        del params, opt
+    if set(depths) >= {1, 2}:
+        c1, c2 = (rec[f"depth{d}"]["collectives"] for d in (1, 2))
+        rec["full"] = {"collectives": {
+            k: c1.get(k, 0) + (rec["units"] - 1) * (c2.get(k, 0)
+                                                     - c1.get(k, 0))
+            for k in sorted(set(c1) | set(c2))}}
+    if out_dir and mesh.rank == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        fn = os.path.join(out_dir, f"{arch}.{shape_name}.live"
+                          f"{rec['mesh']}.json")
+        with open(fn, "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="one arch (default: all)")
+    ap.add_argument("--shape", default=None, help="one shape (default: all)")
+    ap.add_argument("--out", default=OUT_DIR)
+    args = ap.parse_args(argv)
+    archs = [args.arch] if args.arch else ARCHS
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    os.makedirs(args.out, exist_ok=True)
+    recs = [layout_cell(a, s, m) for m in MESHES.values() for a in archs
+            for s in shapes]
+    with open(os.path.join(args.out, "layouts.json"), "w") as f:
+        json.dump(recs, f, indent=1)
+    for r in recs:
+        if not r["skipped"]:
+            print(f"[{r['arch']} {r['shape']} {r['mesh']}] "
+                  f"{r['argument_bytes'] / 2**30:.2f} GiB a rank",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

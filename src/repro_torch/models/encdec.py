@@ -28,6 +28,7 @@ from repro_torch.core.graph_state import resolve_device
 
 from . import layers as L
 from .config import ModelConfig
+from .sharding_ctx import P, stacked
 
 
 def _norms(cfg: ModelConfig, dev, names) -> dict:
@@ -57,12 +58,29 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "lm_head": L.init_unembed(gen, cfg)}
 
 
+def specs(cfg: ModelConfig) -> dict:
+    a, m = L.attention_specs(cfg), L.mlp_specs(cfg)
+    enc_one = {"attn": a, "mlp": m, "ln1": P(None), "ln2": P(None)}
+    dec_one = {"self": a, "cross": a, "mlp": m,
+               "ln1": P(None), "ln2": P(None), "ln3": P(None)}
+    return {"embed": L.embed_specs(cfg),
+            "encoder": [enc_one] * cfg.encoder_layers,
+            "decoder": [dec_one] * cfg.num_layers, "enc_norm": P(None),
+            "final_norm": P(None), "lm_head": L.unembed_specs(cfg)}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    kv = L.kv_cache_spec()
+    return {"self": {"k": kv, "v": kv, "idx": stacked(P())},
+            "cross": {"k": kv, "v": kv}}
+
+
 def encode(params: dict, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: [B, encoder_seq, d] (the stubbed frontend's output)."""
     h = frames.to(cfg.dtype)
-    for lp in params["encoder"]:
-        h = L.remat(cfg, _enc_layer, lp, h, cfg)
+    for i, lp in enumerate(params["encoder"]):
+        h = L.remat(cfg, _enc_layer, lp, h, cfg, path=("encoder", i))
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -96,7 +114,8 @@ def decode(params: dict, tokens: torch.Tensor,
     h = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["decoder"]):
         if caches is None:
-            h = L.remat(cfg, _dec_layer, lp, h, cfg, None, None, enc_out)
+            h = L.remat(cfg, _dec_layer, lp, h, cfg, None, None, enc_out,
+                        path=("decoder", i))
             continue
         sc = {"k": caches["self"]["k"][i], "v": caches["self"]["v"][i],
               "idx": caches["self"]["idx"]}

@@ -27,6 +27,7 @@ from repro_torch.core.graph_state import resolve_device
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
+from .sharding_ctx import P, gathered, stacked
 
 
 def _n_super(cfg: ModelConfig):
@@ -54,6 +55,28 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+def specs(cfg: ModelConfig) -> dict:
+    ns, rem = _n_super(cfg)
+    one = S.layer_specs(cfg)
+    out = {"embed": L.embed_specs(cfg), "lm_head": L.unembed_specs(cfg),
+           "blocks": [[one] * cfg.attn_every] * ns,
+           "shared": {"attn": L.attention_specs(cfg),
+                      "mlp": L.mlp_specs(cfg),
+                      "ln1": P(None), "ln2": P(None)},
+           "final_norm": P(None)}
+    if rem:
+        out["tail"] = [one] * rem
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    ns, rem = _n_super(cfg)
+    return {"ssm": S.ssm_cache_specs(cfg, lead=2),
+            "attn": {"k": L.kv_cache_spec(), "v": L.kv_cache_spec(),
+                     "idx": stacked(P())},
+            "tail": S.ssm_cache_specs(cfg) if rem else None}
+
+
 def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
                   cache: Optional[dict], positions) -> torch.Tensor:
     a, _ = L.attention(sp["attn"], L.rms_norm(h, sp["ln1"], cfg.norm_eps),
@@ -63,9 +86,10 @@ def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
 
 
 def _super_block(block: list, sp: dict, h: torch.Tensor, cfg: ModelConfig,
-                 positions) -> torch.Tensor:
-    """A super-block without caches: its Mamba2 layers, then the shared
-    block."""
+                 positions, j: int) -> torch.Tensor:
+    """Super-block ``j`` without caches: its Mamba2 layers, then the shared
+    block (on a mesh, each gathered here, inside the remat region)."""
+    block, sp = gathered(block, "blocks", j), gathered(sp, "shared")
     for lp in block:
         h = S.residual_block(lp, h, cfg)
     return _shared_block(sp, h, cfg, None, positions)
@@ -84,7 +108,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                                                           caches["tail"])
     for j, block in enumerate(params["blocks"]):
         if caches is None:
-            h = L.remat(cfg, _super_block, block, sp, h, cfg, positions)
+            h = L.remat(cfg, _super_block, block, sp, h, cfg, positions, j)
             continue
         for i, lp in enumerate(block):
             h = S.residual_block(lp, h, cfg, S.layer_cache(ssm_c, j, i))
@@ -92,7 +116,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                   "idx": caches["attn"]["idx"]}
         h = _shared_block(sp, h, cfg, attn_c, positions)
     for i, lp in enumerate(params.get("tail", ())):
-        h = S.residual_block(lp, h, cfg, S.layer_cache(tail_c, i))
+        if caches is None:
+            h = S.residual_block(gathered(lp, "tail", i), h, cfg)
+        else:
+            h = S.residual_block(lp, h, cfg, S.layer_cache(tail_c, i))
     if caches is not None:
         attn = caches["attn"]
         caches = {**caches, "attn": {**attn,

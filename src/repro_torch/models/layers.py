@@ -1,8 +1,10 @@
 """Functional layer library (port of ``repro.models.layers``): norms, RoPE /
 M-RoPE, GQA attention, MLP, embeddings and the chunked cross-entropy.
 
-Parameters are plain dicts of tensors, as the reference's pytrees.  The
-reference's sharding constraints are gone: one device needs none.  The
+Parameters are plain dicts of tensors, as the reference's pytrees, with
+the reference's sharding specs (``*_specs``).  On a mesh of processes the
+parameters are gathered where they are used (``remat(path=)``, ``embed``,
+``next_token_loss``; ``sharding_ctx``).  The
 reference's ``preferred_element_type=float32`` products (attention scores,
 logits) multiply the operands upcast to float32, which is exact for bf16
 operands and accumulates in float32 as the reference does.
@@ -18,7 +20,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 
+from . import sharding_ctx
 from .config import ModelConfig
+from .sharding_ctx import P
+
+# Sharding (the reference's MaxText-style FSDP + TP): weight matrices'
+# input-feature dim over ``data``, output-feature dim over ``model``.
+FSDP = "data"
+TP = "model"
 
 
 # Largest float32 draw ``_init`` makes at once.
@@ -41,6 +50,8 @@ def _init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
                         dtype=torch.float32)
         return x.mul_(scale).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:     # shapes only (``param_shapes``): nothing to draw
+        return out
     rows = max(1, INIT_DRAW_BYTES // slice_bytes)
     for r0 in range(0, shape[0], rows):
         n = min(rows, shape[0] - r0)
@@ -50,13 +61,22 @@ def _init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
     return out
 
 
-def remat(cfg: ModelConfig, fn, *args):
-    """``fn(*args)``, rematerialised in the backward when ``cfg.remat`` and
-    autograd is on (the reference's ``jax.checkpoint`` of a layer body):
-    the forward keeps the block's inputs only."""
+def remat(cfg: ModelConfig, fn, lp, *args, path=None, keep=()):
+    """``fn(lp, *args)``, rematerialised in the backward when ``cfg.remat``
+    and autograd is on (the reference's ``jax.checkpoint`` of a layer
+    body): the forward keeps the block's inputs only.  ``path`` names the
+    parameters ``lp`` in the installed tree: on a mesh they are gathered
+    inside the region (``sharding_ctx.gathered``, but ``keep``'s
+    subtrees), so the backward gathers them again instead of keeping them
+    whole."""
+    if path is not None and sharding_ctx.live_mesh() is not None:
+        inner = fn
+
+        def fn(lp, *a):
+            return inner(sharding_ctx.gathered(lp, *path, keep=keep), *a)
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(fn, lp, *args, use_reentrant=False)
+    return fn(lp, *args)
 
 
 def next_token_loss(head: torch.Tensor, h: torch.Tensor,
@@ -66,8 +86,11 @@ def next_token_loss(head: torch.Tensor, h: torch.Tensor,
     out (every family's ``loss_fn`` in the reference)."""
     targets = tokens[:, 1:]
     mask = (targets != 0).float()
-    nll, cnt = unembed_chunked_xent(head, h, targets, mask, cfg.xent_chunk)
-    return nll / torch.clamp(cnt, min=1.0)
+    nll, cnt = unembed_chunked_xent(sharding_ctx.gathered(head, "lm_head"),
+                                    h, targets, mask, cfg.xent_chunk)
+    # On a mesh: this process's share, over the whole batch's count.
+    cnt = sharding_ctx.batch_total(cnt)
+    return sharding_ctx.batch_share(nll / torch.clamp(cnt, min=1.0))
 
 
 # ------------------------------- norms -----------------------------------
@@ -137,6 +160,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
         params["q_norm"] = init_rmsnorm(hd, cfg.dtype, gen.device)
         params["k_norm"] = init_rmsnorm(hd, cfg.dtype, gen.device)
     return params
+
+
+def attention_specs(cfg: ModelConfig) -> dict:
+    specs = {"wq": P(FSDP, TP), "wk": P(FSDP, TP), "wv": P(FSDP, TP),
+             "wo": P(TP, FSDP)}
+    if cfg.qk_norm:
+        specs["q_norm"] = P(None)
+        specs["k_norm"] = P(None)
+    return specs
+
+
+def kv_cache_spec() -> P:
+    """A K/V cache [L, B, KV, S, D]: batch over data, sequence over model
+    (the reference's sequence parallelism)."""
+    return P(None, FSDP, None, TP, None)
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -304,6 +342,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def mlp_specs(cfg: ModelConfig) -> dict:
+    return {"wi": P(FSDP, TP), "wg": P(FSDP, TP), "wo": P(TP, FSDP)}
+
+
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ p["wg"])
     up = x @ p["wi"]
@@ -319,6 +361,15 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
 def init_unembed(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
     """Untied output head [d, vocab], as in the reference."""
     return _init(gen, (cfg.d_model, cfg.vocab_size), cfg.dtype)
+
+
+def embed_specs(cfg: ModelConfig) -> P:
+    # vocab over model, d replicated (the reference's).
+    return P(TP, None)
+
+
+def unembed_specs(cfg: ModelConfig) -> P:
+    return P(None, TP)
 
 
 class _Embed(torch.autograd.Function):
@@ -348,7 +399,8 @@ class _Embed(torch.autograd.Function):
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return _Embed.apply(table, tokens)
+    """``table[tokens]``; on a mesh the table is gathered first."""
+    return _Embed.apply(sharding_ctx.gathered(table, "embed"), tokens)
 
 
 def unembed_chunked_xent(head: torch.Tensor, h: torch.Tensor,

@@ -30,6 +30,8 @@ class Model:
     prefill: Callable        # (params, tokens, cache, **kw) -> (logits, cache)
     decode_step: Callable    # (params, tokens, cache, **kw) -> (logits, cache)
     init_cache: Callable     # (batch, max_len, dtype=, device=) -> cache
+    specs: Callable          # () -> parameter spec tree (per-layer lists)
+    cache_specs: Callable    # () -> cache spec tree
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -53,6 +55,8 @@ def get_model(cfg: ModelConfig) -> Model:
             params, tokens, cfg, cache, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, device="cuda":
             mod.init_cache(cfg, batch, max_len, dtype, device),
+        specs=lambda: mod.specs(cfg),
+        cache_specs=lambda: mod.cache_specs(cfg),
     )
 
 

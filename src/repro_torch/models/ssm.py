@@ -34,6 +34,8 @@ from repro_torch.core.graph_state import resolve_device
 
 from . import layers as L
 from .config import ModelConfig
+from .layers import FSDP, TP
+from .sharding_ctx import P, stacked
 
 
 def _ein(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -224,6 +226,25 @@ def layer_cache(caches: Optional[dict], *index) -> Optional[dict]:
     return {"conv": caches["conv"][index], "ssd": caches["ssd"][index]}
 
 
+def ssm_block_specs(cfg: ModelConfig) -> dict:
+    return {
+        "in_z": P(FSDP, TP), "in_xbc": P(FSDP, TP), "in_dt": P(FSDP, None),
+        "conv_w": P(TP, None), "conv_b": P(TP),
+        "A_log": P(None), "D": P(None), "dt_bias": P(None),
+        "norm": P(TP), "out": P(TP, FSDP),
+    }
+
+
+def ssm_cache_specs(cfg: ModelConfig, lead: int = 1) -> dict:
+    """conv [*lead, B, K-1, C], ssd [*lead, B, H, Pd, N]."""
+    return {"conv": stacked(P(FSDP, None, TP), lead),
+            "ssd": stacked(P(FSDP, TP, None, None), lead)}
+
+
+def layer_specs(cfg: ModelConfig) -> dict:
+    return {"mixer": ssm_block_specs(cfg), "ln": P(None)}
+
+
 # ------------------------- full Mamba2 LM --------------------------------
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -239,6 +260,16 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "lm_head": L.init_unembed(gen, cfg)}
 
 
+def specs(cfg: ModelConfig) -> dict:
+    return {"embed": L.embed_specs(cfg),
+            "layers": [layer_specs(cfg)] * cfg.num_layers,
+            "final_norm": P(None), "lm_head": L.unembed_specs(cfg)}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    return ssm_cache_specs(cfg)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[dict] = None):
     """Returns ``(hidden [B,S,d], caches)``; with ``caches`` each layer's
@@ -246,7 +277,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     h = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
         if caches is None:
-            h = L.remat(cfg, residual_block, lp, h, cfg)
+            h = L.remat(cfg, residual_block, lp, h, cfg, path=("layers", i))
         else:
             h = residual_block(lp, h, cfg, layer_cache(caches, i))
     return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches

@@ -18,8 +18,10 @@ import torch
 from repro_torch.core.graph_state import resolve_device
 
 from . import layers as L
+from . import sharding_ctx
 from .config import ModelConfig
-from .moe import init_moe, moe
+from .moe import init_moe, moe, moe_specs
+from .sharding_ctx import P, stacked
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -48,16 +50,39 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "lm_head": L.init_unembed(gen, cfg)}
 
 
-def _layer_apply(lp, h, cfg, window, cache, positions):
+def _layer_specs(cfg: ModelConfig) -> dict:
+    return {"attn": L.attention_specs(cfg),
+            "ffn": moe_specs(cfg) if cfg.num_experts else L.mlp_specs(cfg),
+            "ln1": P(None), "ln2": P(None)}
+
+
+def specs(cfg: ModelConfig) -> dict:
+    """The reference's parameter specs, one layer's per entry of
+    ``layers`` (its stacked specs without the leading ``None``)."""
+    return {"embed": L.embed_specs(cfg),
+            "layers": [_layer_specs(cfg)] * cfg.num_layers,
+            "final_norm": P(None), "lm_head": L.unembed_specs(cfg)}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """Batch over data, sequence over model (the reference's)."""
+    return {"k": L.kv_cache_spec(), "v": L.kv_cache_spec(),
+            "idx": stacked(P())}
+
+
+def _layer_apply(lp, h, cfg, window, cache, positions, path=None):
     """One block; the attention writes its K/V rows into ``cache`` in
     place.  Returns (h, the MoE load-balance loss, or 0.0 for a dense
-    model or with a cache: serving never reads it)."""
+    model or with a cache: serving never reads it).  ``path``: the layer's
+    place in the parameter tree, which the MoE's dense dispatch gathers
+    its expert blocks by on a mesh."""
     a, _ = L.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
                        cfg, positions=positions, cache=cache, window=window)
     h = h + a
     hn = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if cfg.num_experts:
-        f, aux = moe(lp["ffn"], hn, cfg, with_aux=cache is None)
+        f, aux = moe(lp["ffn"], hn, cfg, with_aux=cache is None,
+                     path=None if path is None else path + ("ffn",))
     else:
         f, aux = L.mlp(lp["ffn"], hn), None
     return h + f, 0.0 if aux is None else aux
@@ -75,8 +100,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     aux = 0.0
     for i, (lp, win) in enumerate(zip(params["layers"], windows)):
         if caches is None:
+            # On a mesh the MoE reads its expert blocks as they are.
             h, a = L.remat(cfg, _layer_apply, lp, h, cfg, win, None,
-                           positions)
+                           positions, ("layers", i), path=("layers", i),
+                           keep=("ffn",) if cfg.num_experts else ())
         else:
             cache = {"k": caches["k"][i], "v": caches["v"][i],
                      "idx": caches["idx"]}
@@ -93,7 +120,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     tokens = batch["tokens"]
     h, _, aux = forward(params, tokens[:, :-1], cfg,
                         positions=batch.get("positions"))
-    return L.next_token_loss(params["lm_head"], h, tokens, cfg) + 0.01 * aux
+    return L.next_token_loss(params["lm_head"], h, tokens, cfg) \
+        + 0.01 * sharding_ctx.replicated_share(aux)
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from .tree import tree_flatten, tree_map
+from .tree import tree_flatten, tree_leaves, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -41,17 +41,52 @@ def _sumsq(x: torch.Tensor) -> torch.Tensor:
     return x.float().square().sum()
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves, _ = tree_flatten(tree)
-    return torch.sqrt(sum(_sumsq(x) for x in leaves))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The float32 norm of every leaf together.  With ``shardings`` (a tree
+    of ``launch.mesh.Sharding`` like ``tree``: the leaves are this
+    process's blocks) each leaf's sum of squares is summed over the axes
+    its block is split over, in rank order, so a leaf replicated over an
+    axis counts once and every process gets the same bits."""
+    if shardings is None:
+        return torch.sqrt(sum(_sumsq(x) for x in tree_leaves(tree)))
+    pairs = paired(tree, shardings)
+    sq = shard_sums([_sumsq(x) for x, _ in pairs], [sh for _, sh in pairs])
+    return torch.sqrt(sum(sq))
+
+
+def paired(tree, shardings) -> list:
+    """``(leaf, its sharding)`` in ``tree``'s leaf order (matched by
+    place: key, index or field, not by order)."""
+    out = []
+    tree_map(lambda x, sh: out.append((x, sh)), tree, shardings)
+    return out
+
+
+def shard_sums(vals, shardings, op: str = "psum") -> list:
+    """Each scalar of ``vals`` summed (``op="pmax"``: maxed) over the axes
+    of its leaf's sharding, one collective per set of axes."""
+    out = list(vals)
+    by_axes: dict = {}
+    for i, sh in enumerate(shardings):
+        axes = tuple(a for a in sh.mesh.axis_names if a in sh.axes)
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        v = torch.stack([out[i] for i in idx])
+        for a in axes:
+            v = getattr(shardings[idx[0]].mesh.group(a), op)(v)
+        for j, i in enumerate(idx):
+            out[i] = v[j]
+    return out
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, clip_norm=1.0):
+                 eps=1e-8, weight_decay=0.1, clip_norm=1.0, shardings=None):
     """Returns (new_params, new_state).  ``lr`` is a float or a float32
-    tensor (``warmup_cosine``'s)."""
+    tensor (``warmup_cosine``'s).  ``shardings``: the leaves are blocks of
+    a mesh's parameters (``global_norm``)."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, shardings)
     scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
     bc1 = 1.0 - b1 ** step.float()
     bc2 = 1.0 - b2 ** step.float()

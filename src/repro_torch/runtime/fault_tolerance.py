@@ -61,8 +61,11 @@ class RestartableLoop:
     ``state`` is a tree of tensors (params, opt, ...); ``state_like`` gives
     its structure and dtypes for the restore, onto ``device`` (default
     ``"cuda"``).  Preemption (SIGTERM) and injected failures
-    checkpoint-and-raise; calling ``run`` again resumes.  ``mesh`` /
-    ``specs`` (resharding on restore) are not ported yet.
+    checkpoint-and-raise; calling ``run`` again resumes.  With ``mesh`` (a
+    mesh of processes) and ``specs`` (a tree of ``launch.mesh.P`` like
+    ``state_like``, whose shapes are then the whole ones), ``state`` holds
+    this process's blocks: saves gather them (rank 0 writes) and restores
+    reshard onto the mesh, whatever wrote the checkpoint.
     """
 
     def __init__(self, ckpt_dir: str, step_fn, state_like,
@@ -75,6 +78,10 @@ class RestartableLoop:
         self.ckpt_every = ckpt_every
         self.mesh = mesh
         self.specs = specs
+        self.shardings = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import sanitize_shardings
+            self.shardings = sanitize_shardings(specs, state_like, mesh)
         self.device = device
         self.monitor = monitor or HeartbeatMonitor()
         self._preempted = False
@@ -100,17 +107,24 @@ class RestartableLoop:
                 state = self.step_fn(state, step)
                 self.monitor.stop(step)
                 if (step + 1) % self.ckpt_every == 0 or self._preempted:
-                    self.ckpt.save(step + 1, state)
+                    self._save(step + 1, state)
                     saved = step + 1
                 if self._preempted:
-                    self.ckpt.wait()
+                    self.ckpt.wait(self.mesh)
                     raise SystemExit("preempted; checkpointed at step "
                                      f"{step + 1}")
             if saved != total_steps:  # else the last save is the final one
-                self.ckpt.save(total_steps, state, blocking=True)
+                self._save(total_steps, state, blocking=True)
             return state, total_steps
         finally:
             # drain any in-flight async checkpoint so a crash/preemption
-            # always leaves a consistent latest-step index behind
+            # always leaves a consistent latest-step index behind (on a
+            # mesh, for every process: rank 0 writes)
             self.ckpt.wait()
+            if self.mesh is not None and not self.mesh.broken:
+                self.mesh.barrier()
             signal.signal(signal.SIGTERM, prev)
+
+    def _save(self, step: int, state, blocking: bool = False):
+        self.ckpt.save(step, state, blocking, mesh=self.mesh,
+                       shardings=self.shardings)

@@ -14,6 +14,15 @@ per-rank bodies (``shard.queries``) unchanged, over:
   * :class:`DistGroup` -- :class:`~.group.ThreadGroup`'s interface over
     the process group: ``run`` calls the body once, for this rank.
 
+**Named axes.**  ``DistMesh(shape=, axis_names=)`` (or ``set_axes``) lays
+the ranks out rank-major over named axes, as ``jax.make_mesh`` does:
+``rank = data_index * n_model + model_index`` on ``("data", "model")``.
+Each axis gets one subgroup per line of ranks along it (every process
+builds every subgroup, in one order), and ``DistGroup(mesh, axis=name)``
+runs the collectives over this process's line only -- ``psum``,
+``all_gather``, ``all_to_all`` and ``reduce_scatter`` over ``data`` or
+``model``, as the LM stack's sharded step needs them.
+
 **Transports** are named, never guessed, and nothing switches transport
 after a failure:
 
@@ -59,7 +68,9 @@ processes (``torch.multiprocessing``, ``start_method="spawn"``) with a
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import shutil
 import sys
@@ -80,7 +91,8 @@ _HEADER = 16    # bytes of a gloo payload's header: op code, sequence number
 _ALIGN = 8      # each tensor of a payload starts at a multiple of 8 bytes
 _CONTROL = 64   # bytes of a control message (a JSON value)
 _OP_CODES = {"all-reduce": 1, "all-gather": 2, "collective-permute": 3,
-             "merge": 4, "control": 5, "barrier": 6}
+             "merge": 4, "control": 5, "barrier": 6, "all-to-all": 7,
+             "reduce-scatter": 8}
 
 
 class RankFailure(BaseException):
@@ -135,11 +147,14 @@ class DistMesh:
     group from ``init_method`` (a ``file://`` or ``tcp://`` address, or
     ``"env://"`` under ``torchrun``); ``transport`` is ``"nccl"`` or
     ``"gloo"`` (module docstring); ``timeout`` bounds every collective.
-    ``close()`` destroys the process group."""
+    ``shape`` / ``axis_names`` name the axes (module docstring; default
+    one ``"graph"`` axis over every rank).  ``close()`` destroys the
+    process group."""
 
     def __init__(self, rank: int, world_size: int, init_method: str, *,
                  transport: str = "nccl", device=None,
-                 timeout: float = DEFAULT_TIMEOUT_S):
+                 timeout: float = DEFAULT_TIMEOUT_S, shape=None,
+                 axis_names=None):
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown transport {transport!r}; supported "
                              f"transports: {', '.join(TRANSPORTS)}")
@@ -159,6 +174,7 @@ class DistMesh:
         self.device = dev
         self.timeout = timeout
         self.moved: dict = {}
+        self.transport_s = 0.0      # wall spent in the transport's calls
         self.broken = False
         self._seq = 0
         self._open = True
@@ -173,6 +189,82 @@ class DistMesh:
                 "the nccl transport needs one card per rank; the ranks' "
                 f"devices are {[str(d) for d in self.devices]} (ranks "
                 "sharing a card take transport='gloo')")
+        self.axis_names: tuple = ("graph",)
+        self.shape: tuple = (world_size,)
+        self._lines: dict = {}
+        self._groups: dict = {}
+        if shape is not None:
+            self.set_axes(shape, axis_names)
+
+    # -------------------------------- axes --------------------------------
+
+    def set_axes(self, shape, axis_names) -> None:
+        """Lay the ranks out over named axes, rank-major (module
+        docstring), and build every axis's subgroups.  Collective over the
+        world: every rank calls it with the same arguments."""
+        shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh shape {shape} and axis names {names} "
+                             "do not match")
+        if math.prod(shape) != self.size:
+            raise ValueError(f"a mesh of shape {shape} needs "
+                             f"{math.prod(shape)} ranks; the world has "
+                             f"{self.size}")
+        if self._lines:
+            raise ValueError(f"{self!r} already has axes {self.axis_names}")
+        lines = {}
+        for i, name in enumerate(names):
+            others = [range(n) for j, n in enumerate(shape) if j != i]
+            for rest in itertools.product(*others):
+                members = []
+                for k in range(shape[i]):
+                    c = list(rest)
+                    c.insert(i, k)
+                    members.append(self.rank_of(c, shape))
+                pg = dist.new_group(members) if shape[i] > 1 else None
+                if self.rank in members:
+                    lines[name] = (pg, tuple(members))
+        self.shape, self.axis_names, self._lines = shape, names, lines
+
+    def group(self, axis: Optional[str] = None) -> "DistGroup":
+        """The :class:`DistGroup` over ``axis`` (``None``: every rank),
+        made once; all of them count into the world group's tallies."""
+        if axis not in self._groups:
+            world = self._groups.get(None)
+            if world is None:
+                world = self._groups[None] = DistGroup(self)
+            self._groups[axis] = DistGroup(self, axis, counts=world)
+        return self._groups[axis]
+
+    @staticmethod
+    def rank_of(coords, shape) -> int:
+        r = 0
+        for c, n in zip(coords, shape):
+            r = r * n + int(c)
+        return r
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index along each axis."""
+        out, r = {}, self.rank
+        for name, n in reversed(tuple(zip(self.axis_names, self.shape))):
+            out[name] = r % n
+            r //= n
+        return dict(reversed(tuple(out.items())))
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def line(self, axis: Optional[str]):
+        """``(process group, member ranks)`` of this rank's line along
+        ``axis``; ``None``: the world."""
+        if axis is None:
+            return None, tuple(range(self.size))
+        if axis not in self._lines:
+            raise ValueError(f"{self!r} has no axis {axis!r} (axes "
+                             f"{self.axis_names})")
+        return self._lines[axis]
 
     # -------------------------------- axis --------------------------------
 
@@ -216,14 +308,19 @@ class DistMesh:
         return self.transport == "gloo" or any(
             not t.is_cuda for t in tensors)
 
-    def _pack(self, op: str, seq: int, tensors, staged: bool):
+    def _buffer(self, shape, staged: bool) -> torch.Tensor:
+        """A byte buffer: pinned host memory when staged from a card."""
+        dev = "cpu" if staged else self.device
+        return torch.empty(shape, dtype=torch.uint8, device=dev,
+                           pin_memory=staged and self.device.type == "cuda")
+
+    def _pack(self, op: str, seq: int, tensors, staged: bool, out=None):
         """One byte buffer of ``tensors`` (each at an 8-byte offset), with
-        the header when staged through host memory."""
+        the header when staged through host memory; written into ``out``
+        when given."""
         head = _HEADER if staged else 0
         sizes = [_padded(_nbytes(t)) for t in tensors]
-        dev = "cpu" if staged else self.device
-        buf = torch.empty(head + sum(sizes), dtype=torch.uint8, device=dev,
-                          pin_memory=staged and self.device.type == "cuda")
+        buf = self._buffer(head + sum(sizes), staged) if out is None else out
         if head:
             buf[:head].view(torch.int64).copy_(
                 torch.tensor([_OP_CODES[op], seq]))
@@ -260,11 +357,15 @@ class DistMesh:
         return out
 
     def _exchange(self, op: str, tensors, tally: dict,
-                  to_device: bool = True) -> list:
+                  to_device: bool = True, axis: Optional[str] = None) -> list:
         """Every rank's ``tensors`` (same shapes and types on every rank),
-        in rank order: ``[[rank 0's], [rank 1's], ...]``."""
+        in rank order: ``[[rank 0's], [rank 1's], ...]``; with ``axis``,
+        the ranks of this rank's line along it, in their order."""
         seq = self._guard()
-        n = self.size
+        pg, members = self.line(axis)
+        n = len(members)
+        if n == 1:
+            return [list(tensors)]
         staged = self._staged(tensors)
         try:
             buf = self._pack(op, seq, tensors, staged)
@@ -272,15 +373,52 @@ class DistMesh:
                 self._tally(tally, "host-staging", _card_bytes(tensors))
             out = torch.empty((n, buf.numel()), dtype=torch.uint8,
                               device=buf.device, pin_memory=buf.is_pinned())
-            dist.all_gather(list(out.unbind(0)), buf)
+            t0 = time.perf_counter()
+            dist.all_gather(list(out.unbind(0)), buf, group=pg)
+            self.transport_s += time.perf_counter() - t0
         except RankFailure:
             raise
         except Exception as e:  # noqa: BLE001 - the transport's failure
             raise self._fail(e) from e
         self._tally(tally, op, n * sum(map(_nbytes, tensors)))
         return [list(tensors) if r == self.rank  # its own, as sent
-                else self._unpack(op, seq, out[r], tensors, staged,
-                                  to_device, tally) for r in range(n)]
+                else self._unpack(op, seq, out[i], tensors, staged,
+                                  to_device, tally)
+                for i, r in enumerate(members)]
+
+    def _all_to_all(self, op: str, chunks, tally: dict,
+                    axis: Optional[str]) -> list:
+        """``chunks[i]`` (one tensor, the same shape and type for every
+        ``i``) goes to the ``i``-th rank of this rank's line along
+        ``axis``; returns what each of them sent this rank, in line
+        order."""
+        seq = self._guard()
+        pg, members = self.line(axis)
+        n, me = len(members), members.index(self.rank)
+        if n == 1:
+            return list(chunks)
+        staged = self._staged(chunks)
+        try:
+            row = (_HEADER if staged else 0) + _padded(_nbytes(chunks[0]))
+            buf = self._buffer((n, row), staged)
+            for i, c in enumerate(chunks):
+                self._pack(op, seq, [c], staged, out=buf[i])
+            if staged:
+                self._tally(tally, "host-staging", _card_bytes(
+                    [c for i, c in enumerate(chunks) if i != me]))
+            out = torch.empty_like(buf)
+            t0 = time.perf_counter()
+            dist.all_to_all_single(out, buf, group=pg)
+            self.transport_s += time.perf_counter() - t0
+        except RankFailure:
+            raise
+        except Exception as e:  # noqa: BLE001 - the transport's failure
+            raise self._fail(e) from e
+        like = [chunks[0]]
+        self._tally(tally, op, (n - 1) * _nbytes(chunks[0]))
+        return [chunks[i] if i == me
+                else self._unpack(op, seq, out[i], like, staged, True,
+                                  tally)[0] for i in range(n)]
 
     def _permute(self, op: str, tensors, to: Sequence[int],
                  frm: Optional[int], tally: dict):
@@ -353,23 +491,30 @@ class DistMesh:
 
 class DistGroup:
     """One launch of a per-rank body on a :class:`DistMesh`, with
-    :class:`~.group.ThreadGroup`'s methods (module docstring).  ``bytes``
-    / ``calls`` hold the collectives' counts per op name after the run,
-    ``moved`` what the transport carried."""
+    :class:`~.group.ThreadGroup`'s methods (module docstring), over every
+    rank or, with ``axis``, over this rank's line along that axis.
+    ``bytes`` / ``calls`` hold the collectives' counts per op name after
+    the run, ``moved`` what the transport carried; ``counts=`` shares
+    another group's tallies."""
 
-    def __init__(self, mesh: DistMesh):
+    def __init__(self, mesh: DistMesh, axis: Optional[str] = None,
+                 counts: Optional["DistGroup"] = None):
         self.mesh = mesh
-        self.bytes: dict = {}
-        self.calls: dict = {}
-        self.moved: dict = {}
+        self.axis = axis
+        self._members = mesh.line(axis)[1]
+        # ``counts``: another group whose tallies this one adds to (the
+        # axes of one mesh, counted together).
+        self.bytes: dict = {} if counts is None else counts.bytes
+        self.calls: dict = {} if counts is None else counts.calls
+        self.moved: dict = {} if counts is None else counts.moved
 
     # ------------------------------- axis --------------------------------
 
     def axis_index(self) -> int:
-        return self.mesh.rank
+        return self._members.index(self.mesh.rank)
 
     def size(self) -> int:
-        return self.mesh.size
+        return len(self._members)
 
     @property
     def device(self) -> torch.device:
@@ -385,13 +530,18 @@ class DistGroup:
         """Every rank's ``x`` in rank order: tensors on this rank's device,
         host scalars as host scalars of ``x``'s type."""
         if isinstance(x, torch.Tensor):
-            return [v[0] for v in self.mesh._exchange(op, [x], self.moved)]
+            return [v[0] for v in self.mesh._exchange(op, [x], self.moved,
+                                                      axis=self.axis)]
         vals = self.mesh._exchange(op, [_host_scalar(x)], self.moved,
-                                   to_device=False)
+                                   to_device=False, axis=self.axis)
         return [type(x)(v[0][0].item()) for v in vals]
 
     def _reduce(self, x, combine, op: str = "all-reduce"):
         vals = self._gathered(x, op)
+        if isinstance(x, torch.Tensor):
+            # One memory layout on every rank (its own operand may be a
+            # strided view), so later reductions of the result sum alike.
+            vals = [v.contiguous() for v in vals]
         out = vals[0]
         for v in vals[1:]:  # rank order: the same result on every rank
             out = combine(out, v)
@@ -416,6 +566,40 @@ class DistGroup:
         self._count("all-gather", self.size() * _nbytes(x))
         vals = self._gathered(x, "all-gather")
         return torch.cat(vals) if tiled else torch.stack(vals)
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int = 0,
+                   concat_axis: int = 0, tiled: bool = True) -> torch.Tensor:
+        """``lax.all_to_all``: ``x`` split into ``size()`` chunks along
+        ``split_axis``, chunk ``i`` sent to the ``i``-th rank; the chunks
+        received, in rank order, concatenated along ``concat_axis``
+        (``tiled``) or stacked on a new axis there."""
+        n = self.size()
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: axis {split_axis} of "
+                             f"{tuple(x.shape)} does not split {n} ways")
+        self._count("all-to-all", _nbytes(x))
+        chunks = [c.contiguous() for c in x.chunk(n, dim=split_axis)]
+        got = self.mesh._all_to_all("all-to-all", chunks, self.moved,
+                                    self.axis)
+        return torch.cat(got, concat_axis) if tiled else torch.stack(
+            got, concat_axis)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's block along ``axis`` of the sum of ``x`` over the
+        ranks: each rank receives its block from every rank and adds them
+        in rank order (the same bits as ``psum`` and a slice)."""
+        n = self.size()
+        if x.shape[axis] % n:
+            raise ValueError(f"reduce_scatter: axis {axis} of "
+                             f"{tuple(x.shape)} does not split {n} ways")
+        self._count("reduce-scatter", _nbytes(x) // n)
+        chunks = [c.contiguous() for c in x.chunk(n, dim=axis)]
+        got = self.mesh._all_to_all("reduce-scatter", chunks, self.moved,
+                                    self.axis)
+        out = got[0]
+        for v in got[1:]:
+            out = out + v
+        return out
 
     def merge(self, x: torch.Tensor) -> torch.Tensor:
         """A split output concatenated over the ranks, on every process:

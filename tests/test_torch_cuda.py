@@ -889,3 +889,46 @@ def test_cuda_direct_queries_race_the_front_end(cuda_device):
             (k, s, reply.version, reply.mode)
     assert srv.stats.fallbacks == 0 and svc.stats.errors == 0
     assert svc.ring.pinned_versions() == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,batch", [("granite_moe_1b", 4),
+                                        ("granite_moe_1b", 2),
+                                        ("qwen3_32b", 4)])
+def test_cuda_sharded_train_step_matches_one_process(cuda_device, arch,
+                                                     batch):
+    """Four processes on the card over gloo, a (2, 2) (data, model) mesh,
+    three sharded steps of the reduced config (capacity 8: nothing drops)
+    against one process's ``build_train_step`` on the card whose loss is
+    the mean over the two data rows (the mesh's load-balance loss is a
+    mean over rows): losses to rtol 1e-5, first moments to rtol 1e-4 and
+    an atol of 1e-4 of each leaf's largest."""
+    import lm_dist_ranks as lr
+    import repro_torch.shard as ts
+    from repro_torch.data import SyntheticTokens, shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    outs = ts.spawn(lr.port_train_case, 4, device="cuda:0", transport="gloo",
+                    timeout=120, join_timeout=600, args=(arch, batch))
+    cfg = lr.config(arch, 8.0 if "granite" in arch else None)
+    model = lr.rows_mean_model(get_model(cfg), 2)
+    p = tree_map(lambda t: t.to(cuda_device),
+                 model.init(torch.Generator().manual_seed(0)))
+    opt = adamw_init(p, cfg.moment_dtype)
+    step = steps.build_train_step(model, **lr.TRAIN_KW)
+    ds = SyntheticTokens(cfg.vocab_size, lr.SEQ, batch, seed=1)
+    losses = []
+    for i in range(3):
+        p, opt, met = step(p, opt, shard_batch(ds.batch_at(i),
+                                               device=cuda_device))
+        losses.append(float(met["loss"]))
+    for o in outs:
+        assert o["losses"] == outs[0]["losses"]
+        np.testing.assert_allclose(o["losses"], losses, rtol=1e-5)
+        for g, e in zip(tree_leaves(o["m"]), tree_leaves(opt.m)):
+            e = e.float().cpu().numpy()
+            np.testing.assert_allclose(g.numpy(), e, rtol=1e-4,
+                                       atol=1e-4 * np.abs(e).max())

@@ -11,6 +11,7 @@ reference writes them; one and three ``build_train_step`` steps against
 the reference's jitted step.
 """
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -158,8 +159,14 @@ def test_batch_at_bit_equal(seed, step):
     assert got.dtype == exp.dtype and np.array_equal(got, exp)
     t = shard_batch({"tokens": got}, device="cpu")["tokens"]
     assert t.dtype == torch.int32 and np.array_equal(t.numpy(), got)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        shard_batch({"tokens": got}, mesh=object(), device="cpu")
+    # on a mesh, the rows of this process's block: 3 rows split over a
+    # data axis of 3 (model 1), this process at data index 1
+    mesh = types.SimpleNamespace(axis_names=("data", "model"), shape=(3, 1),
+                                 coords={"data": 1, "model": 0},
+                                 device=torch.device("cpu"))
+    rows = shard_batch({"tokens": got}, mesh=mesh)
+    assert np.array_equal(rows["tokens"].numpy(), got[1:2])
+    assert tuple(rows.shardings["tokens"].spec) == (("data", "model"), None)
 
 
 def test_checkpoint_bf16_and_float8_leaves_as_the_reference(tmp_path):
