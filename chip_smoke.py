@@ -244,12 +244,51 @@ exit code:
                  counted and moved, the dry run's counted bytes and the
                  kernel launches of 3k's processes (none: training runs
                  attention through "xla");
+  3l. LM serving on the mesh -- four processes (dist.spawn) on cuda:0 over
+                 gloo on the LM_MESH mesh (NCCL with one card per rank where
+                 there are four cards, else it says so), serving in the
+                 reference's layout through steps.build_prefill_step(mesh=)
+                 and build_decode_step(mesh=): parameters in blocks, each
+                 process's block of the KV cache (batch over "data", the
+                 SERVE_MAX_LEN = 2080 rows of the sequence split in two
+                 blocks over "model", checked), its batch rows over "data".
+                 granite_moe_1b at full width and depth and
+                 mistral_nemo_12b at full width cut to 2 layers (SERVE_RUNS;
+                 bf16, batch 4, prompt 2048, 31 and 4 decode steps), each held
+                 against one process's build_prefill_step /
+                 build_decode_step on the card on the same seed-0 weights,
+                 serve's prompts and the one process's greedy tokens: every
+                 step's logits and the gathered cache within LM_REL_TOL,
+                 the share of equal argmax printed beside how far the one
+                 process's bf16 prefill lies from its float32 one; the MoE
+                 at capacity E / k, with the dropped pairs of both runs
+                 tallied and checked at 0; granite cut to
+                 SERVE_SPLIT_LAYERS layers takes the prompt as two halves
+                 (the continuation's gathered prefix) against one
+                 process's single prefill.  flash_attention must launch
+                 once a layer a prefill (both prefill cases) and never on
+                 a decode step, in every process; rank 0's first call of
+                 each shape is held against the plain version.  Then
+                 reduced granite (capacity 8) and qwen3_32b in float32
+                 (SERVE_F32: prompt, continuation, decode steps) against
+                 one process on the card to rtol = atol = 1e-4, and the
+                 dry run's live prefill_32k and decode_32k cells of
+                 granite_moe_1b at depth 1 and 2 at SERVE_DRYRUN_SEQ.
+                 The model ranks of a
+                 data row must hold the same logits bit for bit; a failed
+                 or hung process fails the phase.  Prints prefill walls and
+                 decode ms a token (median) beside the one process's and
+                 3d's, collective bytes counted and moved a prefill and a
+                 decode step, the transport's share, rank 0's busy share of
+                 one profiled decode step, peak memory per process and the
+                 dry run's counted bytes;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
                  launches are those of 3a, 3e, 3g and 3j (summed over 3j's
                  processes); bool_mm_masked's and minplus_mm_masked's
                  those of 3b, 3c, 3g and 3j;
-                 flash_attention's those of 3d, 3h and 3i.  The masked rows
+                 flash_attention's those of 3d, 3h, 3i and 3l (summed over
+                 3l's processes).  The masked rows
                  carry their band-shape timings under "band" (and
                  count_mm_masked's backward under "band_t"), the
                  flash_attention row 3h's four shapes under "encdec" and
@@ -1644,6 +1683,11 @@ def gib(nbytes) -> str:
     return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
 
 
+# Each served arch's prefill seconds and decode seconds a token (3d, 3h, 3i),
+# printed beside 3l's mesh.
+SERVED = {}
+
+
 def served(torch, timings, arch, cfg, run):
     """``run()`` (a serve of ``arch``) under a ``FlashCapture`` with the
     kernel's launch count reset: logs its times, peak memory and launches,
@@ -1658,6 +1702,7 @@ def served(torch, timings, arch, cfg, run):
     n = kf.LAUNCHES["flash_attention"]
     b, steps = r.prompts.shape[0], LM_GEN - 1
     timings[f"{arch} serve (init + prefill + decode)"] = wall
+    SERVED[arch] = (r.prefill_s, r.decode_s / steps)
     log(f"  {arch} prefill {b}x{r.prompts.shape[1]}: "
         f"{r.prefill_s * 1e3:.1f} ms ({b * r.prompts.shape[1] / r.prefill_s:.0f}"
         f" tokens/s); decode {steps} steps: "
@@ -4096,6 +4141,515 @@ def lm_shard_check(torch, np, outs, root, transport):
     log(f"  nvidia-smi: {nvidia_smi()}")
 
 
+# --------------------------------- phase 3l --------------------------------
+
+# Sharded prefill and decode on the LM_MESH mesh of processes on the one card
+# (gloo; NCCL with one card per rank where there are four cards), in the
+# reference's serving layout: parameters in blocks, the KV cache's batch over
+# "data" and its sequence over "model", the batch rows over "data".  Each run
+# is held against one process's build_prefill_step / build_decode_step on the
+# card, on the same seed-0 weights, the same prompts (serve's draw) and the
+# one process's greedy tokens.  SERVE_RUNS: arch, layers kept (None: all),
+# decode steps, and whether the mesh takes the prompt as two halves (the
+# continuation's gathered prefix, held against the one process's single
+# prefill; granite's cut to SERVE_SPLIT_LAYERS layers, since a full-depth
+# prefill moves about 3e10 B through gloo's host staging).  Every run's
+# cache holds SERVE_MAX_LEN rows, split in two blocks over "model".  The
+# MoE serves at capacity E / k, at which neither the one process's dense
+# dispatch nor the mesh's buckets can drop a pair; both tallies are checked
+# at 0.  SERVE_F32: reduced configs (float32; granite at its capacity) held
+# to SERVE_F32_TOL: a prompt, a continuation and decode steps.  The dry
+# run's prefill_32k and decode_32k cells run at SERVE_DRYRUN_SEQ.
+SERVE_SPLIT_LAYERS = 4
+SERVE_RUNS = (("granite_moe_1b", None, LM_GEN - 1, False),
+              ("granite_moe_1b", SERVE_SPLIT_LAYERS, 0, True),
+              ("mistral_nemo_12b", 2, 4, False))
+SERVE_MAX_LEN = LM_PROMPT + LM_GEN      # 1040 rows a process
+SERVE_F32 = (("granite_moe_1b", 8.0), ("qwen3_32b", None))
+SERVE_F32_PROMPT, SERVE_F32_CONT, SERVE_F32_DECODE = 24, 8, 4
+SERVE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+SERVE_DRYRUN_ARCH, SERVE_DRYRUN_SEQ = "granite_moe_1b", 4096
+SERVE_REDUCED = False   # True: every run at its reduced config (rehearsal)
+
+
+def serve_config(arch, layers=None):
+    """3l's config of ``arch``: reduced where SERVE_REDUCED, cut to
+    ``layers`` layers, its MoE at capacity E / k."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch)
+    if SERVE_REDUCED:
+        cfg = reduced(cfg)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    return cfg
+
+
+def serve_f32_config(arch, capacity):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config(arch))
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity)
+    return cfg
+
+
+def serve_prompts(torch, cfg, prompt_len):
+    """serve.serve's prompts: LM_BATCH rows of uniform tokens from a
+    generator seeded 1."""
+    draw = torch.Generator(device=DEV).manual_seed(1)
+    return torch.randint(1, cfg.vocab_size, (LM_BATCH, prompt_len),
+                         generator=draw, device=DEV)
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_one_process(torch, cfg, prompts, n_dec, max_len, chunks=(),
+                      floor=False):
+    """One process on the card: the prompt (then each continuation of
+    ``chunks``) and ``n_dec`` greedy decode steps, through
+    build_prefill_step / build_decode_step.  Returns every step's logits
+    and wall, the greedy tokens, the cache and the dropped pairs; with
+    ``floor``, also how far the prefill's logits lie from the same prefill
+    in float32 on the same weights (what bf16 rounding alone moves)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model, moe
+
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    cache = model.init_cache(prompts.shape[0], max_len, dtype=cfg.dtype,
+                             device=DEV)
+    prefill = steps.build_prefill_step(model)
+    decode = steps.build_decode_step(model)
+    rec = {"logits": [], "walls": [], "tokens": []}
+
+    def run(step, t):
+        nonlocal cache
+        sync(torch, DEV)
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, {"tokens": t})
+        sync(torch, DEV)
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["logits"].append(logits.float().cpu())
+        return logits
+
+    with moe.drop_tally() as drops:
+        logits = run(prefill, prompts)
+        for c in chunks:
+            logits = run(prefill, c)
+        for _ in range(n_dec):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            rec["tokens"].append(tok.cpu())
+            logits = run(decode, tok)
+        rec["drops"] = int(torch.stack(drops).sum()) if drops else 0
+    rec["tokens"] = (torch.cat(rec["tokens"], dim=1) if rec["tokens"]
+                     else torch.zeros((prompts.shape[0], 0), dtype=torch.long))
+    rec["k"], rec["v"] = (cache[k].to("cpu", copy=True) for k in ("k", "v"))
+    del cache
+    if floor:
+        import dataclasses
+
+        f32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+        params = to_float32(torch, params)
+        cache = f32.init_cache(prompts.shape[0], prompts.shape[1],
+                               dtype=torch.float32, device=DEV)
+        logits, _ = steps.build_prefill_step(f32)(params, cache,
+                                                   {"tokens": prompts})
+        rec["floor"] = rel_l2(torch, rec["logits"][0], logits.cpu())
+    del params
+    return rec
+
+
+def lm_serve_rank(mesh, cfg, feeds):
+    """One process of phase 3l (module docstring): SERVE_RUNS and SERVE_F32
+    on its blocks, and the dry run's live serving cells.  ``cfg``: the
+    parent's sizes; ``feeds``: the prompts and the one process's greedy
+    tokens of each run."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import dryrun, mesh as meshlib
+
+    globals().update(cfg)
+    meshlib.make_production_mesh(mesh, shape=LM_MESH)
+    card = mesh.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    # Flash calls: the wrapper's launch count on the card; on the CPU (a
+    # rehearsal) its plain version launches nothing, so the calls.
+    calls, real = [], kops.flash_attention
+
+    def counted(*a, **kw):
+        calls.append(tuple(a[1].shape))
+        return real(*a, **kw)
+    kops.flash_attention = counted
+    kf.reset_launches()
+    flash = (lambda: kf.LAUNCHES["flash_attention"]) if card else (
+        lambda: len(calls))
+    out = {"rank": mesh.rank, "coords": mesh.coords, "runs": [], "f32": []}
+    for i, ((arch, layers, _, _), feed) in enumerate(zip(SERVE_RUNS,
+                                                         feeds["runs"])):
+        with FlashCapture() as cap:
+            run = mesh_serve(torch, mesh, serve_config(arch, layers), feed,
+                             SERVE_MAX_LEN, flash, profile=i == 0)
+        if mesh.rank == 0:      # the kernel's inputs, held in the parent
+            run["captured"] = [tuple(x.cpu() if hasattr(x, "cpu") else x
+                                     for x in c) for c in cap.calls.values()]
+        out["runs"].append(run)
+    for (arch, capacity), feed in zip(SERVE_F32, feeds["f32"]):
+        out["f32"].append(mesh_serve(
+            torch, mesh, serve_f32_config(arch, capacity), feed,
+            SERVE_F32_PROMPT + SERVE_F32_CONT + SERVE_F32_DECODE, flash))
+    out["dryrun"] = {}
+    for shape in ("prefill_32k", "decode_32k"):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(SERVE_DRYRUN_ARCH, shape, mesh, out_dir=None,
+                              seq=SERVE_DRYRUN_SEQ,
+                              cfg=serve_config(SERVE_DRYRUN_ARCH)
+                              if SERVE_REDUCED else None)
+        out["dryrun"][shape] = {k: rec[k] for k in (
+            "depth1", "depth2", "full", "units", "reduced", "batch", "seq")}
+        out["dryrun"][shape]["wall"] = time.perf_counter() - t0
+    out["launches"] = flash()
+    kops.flash_attention = real
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def mesh_serve(torch, mesh, cfg, feed, max_len, flash, profile=False):
+    """One run of 3l on this process's blocks: the prompt, each
+    continuation of ``feed["chunks"]`` and a decode step per fed token.
+    Per step: this process's logits, wall, flash launches, collective
+    bytes counted and moved, time in the transport; the cache block, the
+    dropped pairs, the peak memory; with ``profile`` one more decode step,
+    rank 0's under torch.profiler."""
+    from repro_torch.data import shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model, moe
+
+    dev, card = mesh.device, mesh.device.type == "cuda"
+    tally = mesh.group()
+    model = get_model(cfg)
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = steps.local_state(
+        model.init(torch.Generator(device=dev).manual_seed(0)),
+        steps.mesh_param_shardings(model, mesh))
+    prefill = steps.build_prefill_step(model, mesh=mesh)
+    decode = steps.build_decode_step(model, mesh=mesh)
+    prompts, tokens = feed["prompts"], feed["tokens"]
+    cache = steps.local_cache(model, mesh, prompts.shape[0], max_len,
+                              dtype=cfg.dtype)
+    if cache["k"].shape[3] * LM_MESH[1] != max_len:
+        raise AssertionError(f"3l: the cache of {max_len} rows is not split "
+                             f"over 'model' ({tuple(cache['k'].shape)})")
+    out = {"layers": cfg.num_layers, "block": tuple(cache["k"].shape),
+           "steps": [], "logits": []}
+
+    def batch(t):
+        return shard_batch({"tokens": t}, mesh=mesh, full_batch=False)
+
+    def run(step, t):
+        nonlocal cache
+        bt = batch(t)
+        n0, c0, m0 = flash(), dict(tally.bytes), dict(tally.moved)
+        s0 = mesh.transport_s
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, bt)
+        sync(torch, dev)
+        out["steps"].append({
+            "wall": time.perf_counter() - t0, "flash": flash() - n0,
+            "transport_s": mesh.transport_s - s0,
+            "bytes": {k: v - c0.get(k, 0) for k, v in tally.bytes.items()
+                      if v > c0.get(k, 0)},
+            "moved": {k: v - m0.get(k, 0) for k, v in tally.moved.items()
+                      if v > m0.get(k, 0)}})
+        out["logits"].append(logits.float().cpu())
+
+    with moe.drop_tally() as drops:
+        run(prefill, prompts)
+        for c in feed.get("chunks", ()):
+            run(prefill, c)
+        for j in range(tokens.shape[1]):
+            run(decode, tokens[:, j:j + 1])
+        out["k"], out["v"] = (cache[k].to("cpu", copy=True)
+                              for k in ("k", "v"))
+        out["peak"] = torch.cuda.max_memory_allocated(dev) if card else 0
+        if profile:     # every process steps; rank 0 under the profiler
+            bt = batch(tokens[:, -1:])
+            if card:
+                out["profiled"] = profiled_step(
+                    torch, lambda: decode(params, cache, bt), mesh.rank == 0)
+            else:
+                decode(params, cache, bt)
+        out["drops"] = int(torch.stack(drops).sum()) if drops else 0
+    del params, cache
+    return out
+
+
+def lm_serve_cfg() -> dict:
+    names = ("LM_MESH", "LM_TIMEOUT", "SERVE_RUNS", "SERVE_MAX_LEN",
+             "SERVE_F32", "SERVE_F32_PROMPT", "SERVE_F32_CONT",
+             "SERVE_F32_DECODE", "SERVE_DRYRUN_ARCH", "SERVE_DRYRUN_SEQ",
+             "SERVE_REDUCED")
+    return {k: globals()[k] for k in names}
+
+
+def serve_references(torch, timings):
+    """The one-process runs 3l's mesh is held against, on the card: each
+    SERVE_RUNS entry (a split one as the single prefill) and each SERVE_F32
+    one.  Returns (references, feeds), the feeds as numpy arrays for the
+    processes."""
+    refs, feeds = {"runs": [], "f32": []}, {"runs": [], "f32": []}
+    for arch, layers, n_dec, split in SERVE_RUNS:
+        cfg = serve_config(arch, layers)
+        prompts = serve_prompts(torch, cfg, LM_PROMPT)
+        t0 = time.perf_counter()
+        ref = serve_one_process(torch, cfg, prompts, n_dec, SERVE_MAX_LEN,
+                                floor=not split)
+        timings[f"3l {arch} ({cfg.num_layers} layers) one process"] = \
+            time.perf_counter() - t0
+        refs["runs"].append(ref)
+        p = prompts.cpu().numpy()
+        half = p.shape[1] // 2
+        feeds["runs"].append(
+            {"prompts": p[:, :half], "chunks": [p[:, half:]],
+             "tokens": ref["tokens"].numpy()} if split else
+            {"prompts": p, "tokens": ref["tokens"].numpy()})
+        torch.cuda.empty_cache()
+    for arch, capacity in SERVE_F32:
+        cfg = serve_f32_config(arch, capacity)
+        prompts = serve_prompts(torch, cfg, SERVE_F32_PROMPT + SERVE_F32_CONT)
+        head, tail = (prompts[:, :SERVE_F32_PROMPT],
+                      prompts[:, SERVE_F32_PROMPT:])
+        ref = serve_one_process(
+            torch, cfg, head, SERVE_F32_DECODE,
+            SERVE_F32_PROMPT + SERVE_F32_CONT + SERVE_F32_DECODE,
+            chunks=(tail,))
+        refs["f32"].append(ref)
+        feeds["f32"].append({"prompts": head.cpu().numpy(),
+                             "chunks": [tail.cpu().numpy()],
+                             "tokens": ref["tokens"].numpy()})
+    return refs, feeds
+
+
+def lm_serve_phase(torch, errs, timings):
+    """Phase 3l (module docstring).  Returns the flash_attention launches
+    of the mesh's processes.  Every failure fails the phase: a failed or
+    hung process raises SpawnError."""
+    from repro_torch.shard import spawn
+
+    n = math.prod(LM_MESH)
+    runs = [("gloo", f"{DEV}:0" if DEV == "cuda" else DEV)]
+    if DEV == "cuda" and torch.cuda.device_count() >= n:
+        runs.append(("nccl", None))
+    else:
+        log(f"  NCCL not run: it needs one card per rank, {n} cards; this "
+            f"machine has {torch.cuda.device_count() if DEV == 'cuda' else 0}")
+    for arch, layers, n_dec, split in SERVE_RUNS:
+        cfg = serve_config(arch, layers)
+        log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+            f"vocab {cfg.vocab_size}, experts {cfg.num_experts} top-"
+            f"{cfg.top_k}, capacity {cfg.capacity_factor}, {cfg.dtype}; "
+            f"batch {LM_BATCH}, prompt {LM_PROMPT}"
+            f"{' as two halves' if split else ''}, {n_dec} decode steps, "
+            f"cache {SERVE_MAX_LEN} rows")
+    t0 = time.perf_counter()
+    refs, feeds = serve_references(torch, timings)
+    timings["3l one-process references"] = time.perf_counter() - t0
+    launches = 0
+    for transport, device in runs:
+        t0 = time.perf_counter()
+        outs = spawn(lm_serve_rank, n, device=device, transport=transport,
+                     timeout=LM_TIMEOUT, join_timeout=LM_JOIN,
+                     args=(lm_serve_cfg(), feeds))
+        timings[f"3l {transport} (spawn to join)"] = time.perf_counter() - t0
+        launches += lm_serve_check(torch, errs, outs, refs, transport)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def whole_cache(torch, outs, key, run, which="runs"):
+    """The whole cache [L, B, KV, S, D] from the processes' blocks."""
+    rows = []
+    for d in range(LM_MESH[0]):
+        blocks = [o[which][run][key] for o in outs
+                  if o["coords"]["data"] == d]
+        rows.append(torch.cat(blocks, dim=3))
+    return torch.cat(rows, dim=1)
+
+
+def mesh_logits(torch, outs, run, which="runs"):
+    """Every step's logits of the whole batch: the data rows' blocks of
+    the model-rank-0 processes."""
+    firsts = sorted((o for o in outs if o["coords"]["model"] == 0),
+                    key=lambda o: o["coords"]["data"])
+    return [torch.cat([o[which][run]["logits"][j] for o in firsts])
+            for j in range(len(firsts[0][which][run]["logits"]))]
+
+
+def lm_serve_check(torch, errs, outs, refs, transport):
+    """3l's checks and lines, in this process, on what the processes
+    returned.  Returns the flash launches summed over the processes."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    for o in outs:              # the same bits on the model ranks of a row
+        twin = next(p for p in outs if p is not o
+                    and p["coords"]["data"] == o["coords"]["data"])
+        for which in ("runs", "f32"):
+            for a, b in zip(o[which], twin[which]):
+                if not all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                             b["logits"])):
+                    raise AssertionError(f"3l {transport}: rank {o['rank']}"
+                                         "'s logits differ from its twin's")
+    for i, (arch, layers, n_dec, split) in enumerate(SERVE_RUNS):
+        ref, cfg = refs["runs"][i], serve_config(arch, layers)
+        runs = [o["runs"][i] for o in outs]
+        nl = cfg.num_layers
+        want = (nl, LM_BATCH // LM_MESH[0], cfg.num_kv_heads,
+                SERVE_MAX_LEN // LM_MESH[1], cfg.head_dim)
+        flashes = [nl, nl] if split else [nl] + [0] * n_dec
+        for r in runs:
+            if r["block"] != want:
+                raise AssertionError(f"3l {arch}: cache block {r['block']}, "
+                                     f"not {want}")
+            if [s["flash"] for s in r["steps"]] != flashes:
+                raise AssertionError(
+                    f"3l {arch}: flash launches a step "
+                    f"{[s['flash'] for s in r['steps']]}, not {flashes}")
+            if r["drops"] or ref["drops"]:
+                raise AssertionError(f"3l {arch}: pairs dropped (mesh "
+                                     f"{r['drops']}, one process "
+                                     f"{ref['drops']}) at capacity "
+                                     f"{cfg.capacity_factor}")
+        got = mesh_logits(torch, outs, i)
+        pairs = [(got[-1], ref["logits"][0])] if split else list(
+            zip(got, ref["logits"]))
+        l2 = [rel_l2(torch, g, w) for g, w in pairs]
+        agree = statistics.mean(float((g.argmax(-1) == w.argmax(-1))
+                                      .float().mean()) for g, w in pairs)
+        kv = [rel_l2(torch, whole_cache(torch, outs, key, i), ref[key])
+              for key in ("k", "v")]
+        what = (f"the prompt as {LM_PROMPT // 2} + {LM_PROMPT // 2} (the "
+                f"continuation's gathered prefix) vs one process's single "
+                f"prefill: last logits rel L2 {l2[0]:.3g}" if split else
+                f"logits rel L2 max {max(l2):.3g} over {len(l2)} steps "
+                f"(prefill {l2[0]:.3g}; one process's bf16 prefill is "
+                f"{ref['floor']:.3g} from its float32 one)")
+        log(f"  {transport} {arch} ({nl} layers) on the mesh vs one process: "
+            f"{what}, argmax agreement {agree:.3f}; gathered cache rel L2 k "
+            f"{kv[0]:.3g} v {kv[1]:.3g}; cache block {want} a process; "
+            f"flash launches a step {flashes}; dropped pairs 0 (mesh and "
+            f"one process)")
+        if not (max(l2) < LM_REL_TOL and max(kv) < LM_REL_TOL):
+            raise AssertionError(f"3l {arch}: the mesh's logits or cache "
+                                 f"differ from one process's")
+        report_serve(runs[0], runs, ref, arch, transport,
+                     full=layers is None and not split)
+        for q, k, v, kw in runs[0].get("captured", []):
+            q, k, v = q.to(DEV), k.to(DEV), v.to(DEV)
+            errs.check(torch, "flash_attention",
+                       kf.flash_attention(q, k, v, **kw),
+                       flash_attention_ref(q, k, v, **kw), False,
+                       f"3l {arch} {tuple(q.shape)} x {k.shape[2]}",
+                       FLASH_TOL[str(q.dtype).split(".")[-1]])
+    for i, (arch, capacity) in enumerate(SERVE_F32):
+        ref, nl = refs["f32"][i], serve_f32_config(arch, capacity).num_layers
+        got = mesh_logits(torch, outs, i, "f32")
+        worst = max(float((g - w).abs().max()) for g, w in zip(
+            got, ref["logits"]))
+        same = all(torch.allclose(g, w, **SERVE_F32_TOL) for g, w in zip(
+            got, ref["logits"])) and all(torch.allclose(
+                whole_cache(torch, outs, key, i, "f32"), ref[key],
+                **SERVE_F32_TOL) for key in ("k", "v"))
+        drops = sum(o["f32"][i]["drops"] for o in outs) + ref["drops"]
+        flashes = [s["flash"] for s in outs[0]["f32"][i]["steps"]]
+        log(f"  {transport} f32 reduced {arch} (capacity {capacity}): "
+            f"{len(got)} steps (prompt {SERVE_F32_PROMPT}, continuation "
+            f"{SERVE_F32_CONT}, {SERVE_F32_DECODE} decode) on the mesh vs "
+            f"one process on the card: logits max |diff| {worst:.3g}; "
+            f"logits and cache within rtol = atol = "
+            f"{SERVE_F32_TOL['rtol']}: {same}; flash launches a step "
+            f"{flashes}; dropped pairs {drops}")
+        if (not same or drops
+                or flashes != [nl, nl] + [0] * SERVE_F32_DECODE):
+            raise AssertionError(f"3l f32 {arch}: the mesh differs from one "
+                                 "process")
+    for shape, dr in outs[0]["dryrun"].items():
+        log(f"  {transport} dry run, {SERVE_DRYRUN_ARCH} {shape} at full "
+            f"width, batch {dr['reduced']['batch'][0]} cut to {dr['batch']} "
+            f"x {dr['seq']} ({dr['wall']:.1f} s): counted bytes a rank, depth "
+            f"1 {dr['depth1']['collectives']}, depth 2 "
+            f"{dr['depth2']['collectives']}, extrapolated to {dr['units']} "
+            f"layers {dr['full']['collectives']}")
+    launched = sum(o["launches"] for o in outs)
+    log(f"  {transport} flash_attention launches in 3l's processes: "
+        f"{launched} ({', '.join(str(o['launches']) for o in outs)})")
+    log(f"  nvidia-smi: {nvidia_smi()}")
+    return launched
+
+
+def report_serve(r0, runs, ref, arch, transport, full):
+    """3l's measured lines of one run: rank 0's walls, bytes and transport
+    share, the busy share of its profiled decode step, the processes'
+    peak memory, beside the one process's walls (and, at full depth, 3d's
+    serve of the same model in this run)."""
+    steps = r0["steps"]
+    dec = steps[1:] if ref["tokens"].shape[1] else []
+
+    def per(key, rows):
+        tot = {}
+        for s in rows:
+            for k, v in s[key].items():
+                tot[k] = tot.get(k, 0) + v
+        return ", ".join(f"{k} {v / len(rows):.4g}"
+                         for k, v in sorted(tot.items()))
+    first = steps[:len(steps) - len(dec)]
+    share = (sum(s["transport_s"] for s in steps)
+             / sum(s["wall"] for s in steps))
+    walls = " + ".join(f"{s['wall'] * 1e3:.1f}" for s in first)
+    line = (f"    {transport} {arch}: prefill {walls} ms (one process "
+            f"{ref['walls'][0] * 1e3:.1f} ms)")
+    if dec:
+        line += (f"; decode median "
+                 f"{statistics.median(s['wall'] for s in dec) * 1e3:.2f} ms"
+                 f"/token over {len(dec)} steps (one process "
+                 f"{statistics.median(ref['walls'][1:]) * 1e3:.2f})")
+    log(line + f"; in the transport {share:.3f} of the steps' wall (rank 0)")
+    if full and arch in SERVED:
+        p, d = SERVED[arch]
+        log(f"      phase 3d's serve of {arch} at capacity 1.25, this run: "
+            f"prefill {p * 1e3:.1f} ms, decode {d * 1e3:.2f} ms/token")
+    log(f"      collective bytes a prefill (rank 0), counted: "
+        f"{per('bytes', first)}; moved: {per('moved', first)}")
+    if dec:
+        log(f"      a decode step, counted: {per('bytes', dec)}; moved: "
+            f"{per('moved', dec)}")
+    pr = r0.get("profiled")
+    if pr and "kernel_s" in pr:
+        log(f"      one more decode step, rank 0 under torch.profiler: "
+            f"{pr['wall'] * 1e3:.1f} ms; its kernels "
+            f"{pr['kernel_s'] * 1e3:.2f} ms of device time "
+            f"({pr['kernels']} launches; busy "
+            f"{pr['kernel_s'] / pr['wall']:.3f}), its copies "
+            f"{pr['copy_s'] * 1e3:.2f} ms")
+    log("      peak device memory per process: " + ", ".join(
+        f"{r['peak'] / 2**30:.2f} GiB" for r in runs))
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace (3i's training
     # runs under torch.use_deterministic_algorithms); set before the first
@@ -4242,6 +4796,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_shard_phase(torch, np, timings)
     timings["LM shard phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log(f"== phase 3l: sharded prefill and decode "
+        f"({', '.join(r[0] for r in SERVE_RUNS)}, "
+        f"{'x'.join(map(str, LM_MESH))} (data, model) mesh of processes)")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += lm_serve_phase(torch, errs, timings)
+    timings["LM serve shard phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

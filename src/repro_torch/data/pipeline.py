@@ -4,7 +4,8 @@ Batches are a pure function of (seed, step), so a restarted trainer resumes
 on exactly the data it would have seen: checkpoint and restart never
 replay or skip tokens.  ``SyntheticTokens`` is the reference's numpy code,
 copied, so both packages draw the same tokens; ``shard_batch`` puts a batch
-on one device, or this process's rows of it on a mesh.
+on one device, or this process's rows of it on a mesh (training's or
+serving's layout).
 """
 from __future__ import annotations
 
@@ -49,13 +50,15 @@ class LocalBatch(dict):
         self.shardings = shardings
 
 
-def shard_batch(batch: dict, mesh=None, device="cuda"):
+def shard_batch(batch: dict, mesh=None, device="cuda", full_batch=True):
     """A host batch as tensors on ``device`` (default ``"cuda"``, which
     raises without CUDA).  With ``mesh`` (a mesh of processes), this
-    process's rows only, as training lays the batch out
-    (``batch_shardings(full_batch=True)``: over every axis that divides
-    it; M-RoPE ``positions`` keep their batch on axis 1), in a
-    :class:`LocalBatch` on the mesh's device."""
+    process's rows only, in a :class:`LocalBatch` on the mesh's device:
+    as training lays the batch out (``full_batch=True``,
+    ``batch_shardings(full_batch=True)``: over every axis that divides it)
+    or, with ``full_batch=False``, as serving does (over the data axes
+    only: the ``model`` ranks of a data row hold the same rows).  M-RoPE
+    ``positions`` keep their batch on axis 1."""
     if mesh is None:
         dev = resolve_device(device)
         return {k: torch.from_numpy(np.asarray(v)).to(dev)
@@ -63,6 +66,6 @@ def shard_batch(batch: dict, mesh=None, device="cuda"):
     from repro_torch.launch.mesh import batch_shardings
 
     arrays = {k: np.asarray(v) for k, v in batch.items()}
-    sh = batch_shardings(arrays, mesh, full_batch=True)
+    sh = batch_shardings(arrays, mesh, full_batch=full_batch)
     return LocalBatch({k: torch.from_numpy(np.ascontiguousarray(
         sh[k].local(v))).to(mesh.device) for k, v in arrays.items()}, sh)

@@ -9,18 +9,23 @@ compiler to ask, so the cell splits in two:
     batch and cache shapes (``meta`` tensors) and the model's specs on
     the mesh's sizes it gives each rank's local shapes and bytes -- what
     the reference's ``memory_analysis`` argument bytes stand for.
-  * :func:`run_cell` runs one train step of a train cell at depth 1 and 2
-    (``scale_depth``, ``unit_count``) on a live mesh of processes, reads
-    the collective bytes per op the mesh counted (the reference's
+  * :func:`run_cell` runs one step of a cell at depth 1 and 2
+    (``scale_depth``, ``unit_count``) on a live mesh of processes -- a
+    train step, a prefill of the cell's sequence into an empty cache of
+    that length, or one decode step at the cache's last row -- reads the
+    collective bytes per op the mesh counted (the reference's
     ``parse_collective_bytes`` keys: result bytes of each op, one rank's)
     and extrapolates them to full depth as the reference does (per-unit
-    delta x true depth).  The batch is cut to one sequence per process;
-    the cut is recorded.  Prefill and decode cells wait for the sharded
-    serving path (``NotImplementedError``).
+    delta x true depth).  The batch is cut to one sequence per process
+    (train) or per data row (prefill, decode: the ``model`` ranks of a
+    row serve the same rows); the cuts are recorded.  Serving runs for
+    the transformer family (``steps.build_prefill_step(mesh=)``); the SSM,
+    hybrid and encoder-decoder families' serving cells raise
+    ``NotImplementedError`` (their sharded serving is the next slice).
 
 The CLI writes every cell's layout to ``experiments/dryrun_torch/``
 (git-ignored); ``run_cell`` is called on a live mesh (``chip_smoke.py``
-phase 3k, the tests):
+phases 3k and 3l, the tests):
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
 """
@@ -33,6 +38,7 @@ import math
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, shapes_for
@@ -155,19 +161,23 @@ def layout_cell(arch: str, shape_name: str, mesh_shape) -> dict:
 def run_cell(arch: str, shape_name: str, mesh, *, cfg=None,
              seq: Optional[int] = None, out_dir: Optional[str] = OUT_DIR,
              depths=(1, 2)) -> dict:
-    """One train step of a train cell at each depth of ``depths`` on the
-    live ``mesh`` (every rank calls it): the collective bytes per op the
-    mesh counted, each rank's, and their extrapolation to full depth.
+    """One step of the cell at each depth of ``depths`` on the live
+    ``mesh`` (every rank calls it; module docstring): the collective
+    bytes per op the mesh counted, each rank's, and their extrapolation
+    to full depth.
     ``cfg`` replaces the arch's config (a reduced one on the CPU), ``seq``
     the cell's sequence length."""
     cfg = cfg or get_config(arch)
     seq_full, gbatch, kind = SHAPES[shape_name]
-    if kind != "train":
+    if kind != "train" and cfg.family not in steplib.MESH_SERVING_FAMILIES:
         raise NotImplementedError(
-            f"{shape_name}: the dry run's {kind} cells need sharded "
-            "prefill and decode (ROADMAP.md, queue 1, the next slice)")
+            f"{shape_name}: the dry run's {kind} cells of the {cfg.family} "
+            "family need its sharded serving (ROADMAP.md, queue 1, the next "
+            "slice: the SSM, hybrid and encoder-decoder caches on a mesh)")
     seq = seq or seq_full
-    batch = mesh.size                   # one sequence per process
+    # one sequence per process (train) or per data row (serving)
+    batch = mesh.size if kind == "train" else math.prod(
+        mesh.sizes[a] for a in meshlib.dp_axes(mesh))
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(map(str, mesh.shape)), "n_ranks": mesh.size,
            "transport": mesh.transport, "units": unit_count(cfg),
@@ -177,24 +187,33 @@ def run_cell(arch: str, shape_name: str, mesh, *, cfg=None,
         rec["reduced"]["seq"] = [seq_full, seq]
     tally = mesh.group()
     for d in depths:
-        cfg_d = dataclasses.replace(scale_depth(cfg, d), attn_impl="xla")
+        cfg_d = scale_depth(cfg, d)
+        if kind == "train":     # the flash kernel has no backward
+            cfg_d = dataclasses.replace(cfg_d, attn_impl="xla")
         model = get_model(cfg_d)
         params = model.init(torch.Generator(device=mesh.device)
                             .manual_seed(0))
-        p_sh, o_sh = steplib.train_state_shardings(
-            model, mesh, params, adamw_init(param_shapes(model),
-                                            cfg_d.moment_dtype))
-        params = steplib.local_state(params, p_sh)
-        opt = adamw_init(params, cfg_d.moment_dtype)
-        step = steplib.build_train_step(model, mesh=mesh)
-        ds = SyntheticTokens(cfg_d.vocab_size, seq, batch, seed=0)
-        b = shard_batch(ds.batch_at(0), mesh=mesh)
+        if kind == "train":
+            p_sh, o_sh = steplib.train_state_shardings(
+                model, mesh, params, adamw_init(param_shapes(model),
+                                                cfg_d.moment_dtype))
+            params = steplib.local_state(params, p_sh)
+            state = (params, adamw_init(params, cfg_d.moment_dtype))
+            step = steplib.build_train_step(model, mesh=mesh)
+            ds = SyntheticTokens(cfg_d.vocab_size, seq, batch, seed=0)
+            b = shard_batch(ds.batch_at(0), mesh=mesh)
+        else:
+            params = steplib.local_state(
+                params, steplib.mesh_param_shardings(model, mesh))
+            state = (params, steplib.local_cache(model, mesh, batch, seq,
+                                                 dtype=cfg_d.dtype))
+            step, b = _serving_step(model, mesh, kind, batch, seq, state[1])
         before = dict(tally.bytes)
-        step(params, opt, b)
+        step(*state, b)
         rec[f"depth{d}"] = {"collectives": {
             k: v - before.get(k, 0) for k, v in tally.bytes.items()
             if v - before.get(k, 0)}}
-        del params, opt
+        del params, state
     if set(depths) >= {1, 2}:
         c1, c2 = (rec[f"depth{d}"]["collectives"] for d in (1, 2))
         rec["full"] = {"collectives": {
@@ -208,6 +227,28 @@ def run_cell(arch: str, shape_name: str, mesh, *, cfg=None,
         with open(fn, "w") as f:
             json.dump(rec, f, indent=1)
     return rec
+
+
+def _serving_step(model, mesh, kind: str, batch: int, seq: int, cache):
+    """A serving cell's step and this process's rows of its batch: a
+    prefill of ``seq`` tokens into the empty cache of ``seq`` rows, or one
+    decode step at ``idx = seq - 1`` (the reference lowers its cells with
+    ``cache_len = seq``)."""
+    cfg = model.cfg
+    tokens = SyntheticTokens(cfg.vocab_size, seq, batch, seed=0).batch_at(
+        0)["tokens"]
+    if kind == "prefill":
+        step = steplib.build_prefill_step(model, mesh=mesh)
+        tokens, start = tokens[:, :seq], 0
+    else:
+        step = steplib.build_decode_step(model, mesh=mesh)
+        tokens, start = tokens[:, :1], seq - 1
+        cache["idx"] = start
+    b = {"tokens": tokens}
+    if cfg.mrope_sections:      # text positions on every M-RoPE section
+        pos = np.arange(start, start + tokens.shape[1], dtype=np.int32)
+        b["positions"] = np.broadcast_to(pos, (3,) + tokens.shape).copy()
+    return step, shard_batch(b, mesh=mesh, full_batch=False)
 
 
 def main(argv=None):

@@ -13,6 +13,12 @@ the collectives' transposes and a sum over each leaf's replicated axes
 make every gradient block that of the global loss, and AdamW updates the
 blocks (``models.sharding_ctx``).  The reported loss is the rank-ordered
 sum of the shares, the same bits on every process.
+
+``build_prefill_step`` / ``build_decode_step`` with ``mesh=`` serve the
+transformer family in the reference's layout (the dry run's prefill and
+decode cells): parameters in blocks, the KV cache's batch over ``data``
+and its sequence over ``model`` (``local_cache``), the batch rows over
+the data axes.
 """
 from __future__ import annotations
 
@@ -53,8 +59,33 @@ def train_state_shardings(model: Model, mesh, params_like, opt_like):
 
 def cache_shardings(model: Model, mesh, cache_like):
     """The cache's :class:`Sharding` tree (batch over data, sequence over
-    model): the layout only; nothing runs on it in the port yet."""
+    model), sanitized against the whole cache ``cache_like`` (``meta``
+    tensors will do): the layout ``local_cache`` builds and the mesh's
+    prefill and decode steps serve from."""
     return sanitize_shardings(model.cache_specs(), cache_like, mesh)
+
+
+class LocalCache(dict):
+    """This process's block of a serving cache; ``shardings`` holds the
+    whole cache's :class:`Sharding` tree."""
+
+    def __init__(self, tree: dict, shardings):
+        super().__init__(tree)
+        self.shardings = shardings
+
+
+def local_cache(model: Model, mesh, batch_size: int, max_len: int,
+                dtype=torch.bfloat16) -> LocalCache:
+    """This process's block of an empty cache of ``batch_size`` rows and
+    ``max_len`` positions on ``mesh``'s device (a transformer's K/V:
+    ``[L, batch_size / data, KV, max_len / model, D]``, the whole sequence
+    where ``model`` does not divide ``max_len``)."""
+    like = model.init_cache(batch_size, max_len, dtype=dtype, device="meta")
+    sh = cache_shardings(model, mesh, like)
+    return LocalCache(tree_map(
+        lambda t, s: torch.zeros(s.local_shape(tuple(t.shape)),
+                                 dtype=t.dtype, device=mesh.device)
+        if isinstance(t, torch.Tensor) else t, like, sh), sh)
 
 
 def mesh_param_shardings(model: Model, mesh):
@@ -121,19 +152,50 @@ def gather_state(tree, shardings):
     return tree_map(lambda t, sh: sh.gather(t), tree, shardings)
 
 
-def build_prefill_step(model: Model):
+# The families whose serving runs on a mesh: the transformer's (the SSM,
+# hybrid and encoder-decoder caches are the next slice, ROADMAP.md).
+MESH_SERVING_FAMILIES = ("dense", "moe", "vlm")
+
+
+def _serving(model: Model, mesh, fn, keys):
+    """``fn(params, tokens, cache, **kw)`` as a step ``(params, cache,
+    batch)``, under ``torch.no_grad``; with ``mesh``, on this process's
+    blocks (module docstring of ``build_prefill_step``)."""
+    if mesh is not None and model.cfg.family not in MESH_SERVING_FAMILIES:
+        raise NotImplementedError(
+            f"serving the {model.cfg.family} family on a mesh: its cache's "
+            "layout is the next slice (ROADMAP.md, queue 1)")
+    p_sh = None if mesh is None else mesh_param_shardings(model, mesh)
+
     @torch.no_grad()
-    def prefill_step(params, cache, batch):
-        kw = {k: batch[k] for k in ("positions", "frames") if k in batch}
-        return model.prefill(params, batch["tokens"], cache, **kw)
+    def step(params, cache, batch):
+        kw = {k: batch[k] for k in keys if k in batch}
+        if mesh is None:
+            return fn(params, batch["tokens"], cache, **kw)
+        if not isinstance(cache, LocalCache):
+            raise TypeError("a mesh step serves from local_cache()'s block")
+        with sharding_context(mesh, full_batch=False, params=p_sh,
+                              batch=batch.shardings["tokens"].axes,
+                              cache=cache.shardings["k"]):
+            logits, new = fn(params, batch["tokens"], cache, **kw)
+        return logits, LocalCache(new, cache.shardings)
 
-    return prefill_step
+    return step
 
 
-def build_decode_step(model: Model):
-    @torch.no_grad()
-    def decode_step(params, cache, batch):
-        kw = {k: batch[k] for k in ("positions",) if k in batch}
-        return model.decode_step(params, batch["tokens"], cache, **kw)
+def build_prefill_step(model: Model, mesh=None):
+    """``prefill_step(params, cache, batch)`` -> ``(last-token logits,
+    cache)``.  With ``mesh`` (a ``("data", "model")`` mesh of processes;
+    the transformer family), the reference's serving layout: ``params``
+    this process's blocks (``local_state`` with ``mesh_param_shardings``),
+    ``cache`` its block (``local_cache``: batch over data, sequence over
+    model) and ``batch`` its rows (``shard_batch(mesh=,
+    full_batch=False)``); the logits are its batch rows, the same bits on
+    every ``model`` rank of a data row."""
+    return _serving(model, mesh, model.prefill, ("positions", "frames"))
 
-    return decode_step
+
+def build_decode_step(model: Model, mesh=None):
+    """``decode_step(params, cache, batch)`` -> ``(logits, cache)``: one
+    token; ``mesh`` as ``build_prefill_step``'s."""
+    return _serving(model, mesh, model.decode_step, ("positions",))

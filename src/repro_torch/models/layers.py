@@ -4,7 +4,9 @@ M-RoPE, GQA attention, MLP, embeddings and the chunked cross-entropy.
 Parameters are plain dicts of tensors, as the reference's pytrees, with
 the reference's sharding specs (``*_specs``).  On a mesh of processes the
 parameters are gathered where they are used (``remat(path=)``, ``embed``,
-``next_token_loss``; ``sharding_ctx``).  The
+``next_token_loss``, ``unembed_logits``; ``sharding_ctx``), but serving
+reads the embedding and the head by vocabulary block where they lie, and
+attention reads a KV cache whose sequence is split over ``model``.  The
 reference's ``preferred_element_type=float32`` products (attention scores,
 logits) multiply the operands upcast to float32, which is exact for bf16
 operands and accumulates in float32 as the reference does.
@@ -221,6 +223,19 @@ def _attend(qc, kt, v, q0: int, k0: int, causal: bool,
     """One chunk of ``sdpa_chunked``: queries at positions q0, q0 + 1, ...
     against the transposed float32 keys ``kt`` at positions k0, k0 + 1,
     ..."""
+    p = torch.softmax(_scores(qc, kt, q0, k0, causal, window, softcap),
+                      dim=-1)
+    if empty_rows:
+        p = torch.where(torch.isnan(p), 0.0, p)
+    return p.to(v.dtype) @ v
+
+
+def _scores(qc, kt, q0: int, k0: int, causal: bool, window: Optional[int],
+            softcap: float) -> torch.Tensor:
+    """The float32 scores of queries at positions q0, q0 + 1, ... against
+    the transposed keys ``kt`` at positions k0, k0 + 1, ..., scaled,
+    soft-capped, and ``-inf`` where the causal or window mask hides a
+    key."""
     skv = kt.shape[-1]
     kpos = k0 + torch.arange(skv, device=qc.device)
     qpos = q0 + torch.arange(qc.shape[2], device=qc.device)
@@ -234,11 +249,7 @@ def _attend(qc, kt, v, q0: int, k0: int, causal: bool,
         mask &= kpos[None, :] <= qpos[:, None]
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
-    s = s.masked_fill_(~mask, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    if empty_rows:
-        p = torch.where(torch.isnan(p), 0.0, p)
-    return p.to(v.dtype) @ v
+    return s.masked_fill_(~mask, -math.inf)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -265,6 +276,14 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     hands it the whole K/V, not causal.  Everything else (decode, ``"xla"``)
     runs ``sdpa_chunked`` over the whole cache, whose absolute-position
     mask hides the empty slots, with K/V repeated to the full head count.
+
+    On a mesh whose cache sequence is split in blocks
+    (``sharding_ctx.cache_block``) ``cache`` holds this process's block of
+    global rows ``[r0, r0 + S_l)``: the fresh rows, computed on every
+    process of a data row, are written only where they fall in the block.
+    A prefill on the flash path hands the kernel the fresh K/V at ``idx``
+    0 and the filled prefix gathered over the blocks after it; everything
+    else splits the keys (``_sdpa_seq_split``).
     """
     b, sq, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -291,14 +310,35 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
 
+    seq_axes = ()
     if cache is not None and is_self:
         ck, cv = cache["k"], cache["v"]
-        ck[:, :, q_offset:q_offset + sq] = k.to(ck.dtype)
-        cv[:, :, q_offset:q_offset + sq] = v.to(cv.dtype)
+        r0, seq_axes = sharding_ctx.cache_block(ck.shape[2])
+        if seq_axes:
+            k, v = k.to(ck.dtype), v.to(cv.dtype)
+            _write_block(ck, cv, k, v, q_offset, r0, seq_axes)
+        else:
+            ck[:, :, q_offset:q_offset + sq] = k.to(ck.dtype)
+            cv[:, :, q_offset:q_offset + sq] = v.to(cv.dtype)
+            k, v = ck, cv
         new_cache = {"k": ck, "v": cv, "idx": q_offset + sq}
-        k, v = ck, cv
 
-    if cfg.attn_impl == "flash" and sq > 1 and cfg.logit_softcap == 0:
+    flash = cfg.attn_impl == "flash" and sq > 1 and cfg.logit_softcap == 0
+    if seq_axes:
+        if flash:
+            # The whole prompt's fresh K/V at idx 0; else the filled
+            # prefix, gathered over the sequence's axes.
+            if q_offset:
+                k = _cache_prefix(ck, q_offset + sq, seq_axes)
+                v = _cache_prefix(cv, q_offset + sq, seq_axes)
+            out = kops.flash_attention(q, k, v, causal=causal, window=window)
+        else:
+            out = _sdpa_seq_split(q, ck, cv, cfg, q_offset=q_offset, r0=r0,
+                                  window=window, axes=seq_axes)
+        out = out.transpose(1, 2).reshape(b, sq, h * hd)
+        return out @ p["wo"], new_cache
+
+    if flash:
         if is_self:  # the filled prefix only
             k, v = k[:, :, :q_offset + sq], v[:, :, :q_offset + sq]
         out = kops.flash_attention(q, k, v, causal=causal and is_self,
@@ -313,6 +353,86 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                            window=window, softcap=cfg.logit_softcap)
     out = out.transpose(1, 2).reshape(b, sq, h * hd)
     return out @ p["wo"], new_cache
+
+
+def _write_block(ck, cv, k, v, q_offset: int, r0: int, axes: tuple):
+    """Write the fresh rows ``k``, ``v`` of global positions ``[q_offset,
+    q_offset + Sq)`` into the cache block ``ck``, ``cv`` [B, KV, S_l, D]
+    that holds global rows ``[r0, r0 + S_l)``: only the rows that fall in
+    the block (a process whose block they miss writes nothing)."""
+    sl, sq = ck.shape[2], k.shape[2]
+    total = sl * math.prod(sharding_ctx.live_mesh().sizes[a] for a in axes)
+    if q_offset + sq > total:
+        raise ValueError(f"the cache holds {total} rows; writing {sq} at "
+                         f"{q_offset} overflows it")
+    lo, hi = max(q_offset, r0), min(q_offset + sq, r0 + sl)
+    if lo < hi:
+        ck[:, :, lo - r0:hi - r0] = k[:, :, lo - q_offset:hi - q_offset]
+        cv[:, :, lo - r0:hi - r0] = v[:, :, lo - q_offset:hi - q_offset]
+
+
+def _cache_prefix(c: torch.Tensor, n: int, axes: tuple) -> torch.Tensor:
+    """The first ``n`` global rows [B, KV, n, D] of a cache whose sequence
+    is split in blocks over ``axes``, on every process: each block's first
+    ``min(S_l, n)`` rows gathered in rank order (the first block's alone
+    where ``n`` fits in it), cut to ``n``."""
+    x = c[:, :, :min(c.shape[2], n)]
+    for a in reversed(axes):
+        x = sharding_ctx.all_gather(x, a, dim=2)
+    return x[:, :, :n]
+
+
+def _sdpa_seq_split(q, ck, cv, cfg: ModelConfig, *, q_offset: int, r0: int,
+                    window: Optional[int], axes: tuple) -> torch.Tensor:
+    """``sdpa_chunked`` (causal) against a cache whose sequence is split in
+    blocks over ``axes``: each process scores its queries against its own
+    block of keys (global positions ``r0``, ``r0 + 1``, ...), keeping the
+    unnormalised sum, the row maximum and the weights' sum, and the
+    blocks' partial softmaxes merge over ``axes`` in rank order
+    (``sharding_ctx.softmax_combine``).  Returns [B, H, Sq, D] in the
+    cache's dtype."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    sq, sl = q.shape[2], ck.shape[2]
+    k, v = ck, cv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    kt = k.float().transpose(-1, -2)
+    parts = []
+    for s0 in range(0, sq, cfg.attn_chunk):
+        qc = q[:, :, s0:s0 + cfg.attn_chunk]
+        q0 = q_offset + s0
+        # the block's keys some row of the chunk can see, local positions
+        hi = min(sl, q0 + qc.shape[2] - r0)
+        lo = min(max(hi, 0), 0 if window is None
+                 else max(0, q0 - window + 1 - r0))
+        if hi <= lo:                     # none: an empty partial softmax
+            shape = qc.shape[:3]
+            parts.append((q.new_zeros(shape + (v.shape[3],),
+                                      dtype=torch.float32),
+                          q.new_full(shape + (1,), -math.inf,
+                                     dtype=torch.float32),
+                          q.new_zeros(shape + (1,), dtype=torch.float32)))
+            continue
+        parts.append(_attend_partial(qc, kt[..., lo:hi], v[:, :, lo:hi], q0,
+                                     r0 + lo, window, cfg.logit_softcap))
+    o, m, l = (torch.cat(x, dim=2) for x in zip(*parts))
+    return sharding_ctx.softmax_combine(o, m, l, axes).to(cv.dtype)
+
+
+def _attend_partial(qc, kt, v, q0: int, k0: int, window: Optional[int],
+                    softcap: float):
+    """``_attend``'s causal scores of one chunk against one block of keys,
+    as a partial softmax: ``(sum_j exp(s_j - m) v_j, m, sum_j exp(s_j -
+    m))`` in float32, ``m`` the row maximum (``-inf`` and zeros for a row
+    that sees none of the block's keys).  The weights are rounded to
+    ``v``'s dtype for the product, as ``_attend`` rounds its
+    probabilities."""
+    s = _scores(qc, kt, q0, k0, True, window, softcap)
+    m = s.amax(dim=-1, keepdim=True)
+    w = torch.exp(s - torch.where(m == -math.inf, 0.0, m))
+    o = w.to(v.dtype).float() @ v.float()
+    return o, m, w.sum(dim=-1, keepdim=True)
 
 
 def _project_kv(p: dict, cfg: ModelConfig, src: torch.Tensor):
@@ -398,9 +518,34 @@ class _Embed(torch.autograd.Function):
         return acc.to(ctx.table_dtype), None
 
 
+def _vocab_block(name: str, dim: int, t: torch.Tensor) -> tuple:
+    """``(first id, axes)`` of this process's block of the vocabulary of
+    the parameter ``name``, whose vocab is dimension ``dim`` of ``t``:
+    split there and nowhere else, and no gradient asked for (serving).
+    ``(0, ())`` otherwise: the caller gathers the whole parameter."""
+    sh = sharding_ctx.param_shardings(name)
+    if sh is None or torch.is_grad_enabled() or any(
+            e is not None for i, e in enumerate(sh.spec) if i != dim):
+        return 0, ()
+    return sharding_ctx.block_of(sh, dim, t.shape[dim])
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``; on a mesh the table is gathered first."""
-    return _Embed.apply(sharding_ctx.gathered(table, "embed"), tokens)
+    """``table[tokens]``; on a mesh the table is gathered first, but in
+    serving (no autograd) a table split by vocabulary is read where it
+    lies: each process looks up the ids of its own rows, zeros for the
+    rest, and the rows sum over the split's axes in rank order -- one
+    nonzero term per token, so the sum is the row, bit for bit."""
+    r0, axes = _vocab_block("embed", 0, table)
+    if not axes:
+        return _Embed.apply(sharding_ctx.gathered(table, "embed"), tokens)
+    ids = tokens.long() - r0
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = torch.where(mine[..., None], table[torch.where(mine, ids, 0)],
+                       torch.zeros((), dtype=table.dtype, device=table.device))
+    for a in axes:
+        rows = sharding_ctx.psum(rows, a)
+    return rows
 
 
 def unembed_chunked_xent(head: torch.Tensor, h: torch.Tensor,
@@ -435,5 +580,14 @@ def _xent_chunk(head, hc, tc, mc):
 
 
 def unembed_logits(head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Full float32 logits (decode-time: S is tiny)."""
-    return h.float() @ head.float()
+    """Full float32 logits (decode-time: S is tiny).  On a mesh the head
+    is gathered first, but in serving a head split by vocabulary gives
+    each process the logits of its own columns, gathered over the split's
+    axes."""
+    _, axes = _vocab_block("lm_head", 1, head)
+    if not axes:
+        return h.float() @ sharding_ctx.gathered(head, "lm_head").float()
+    logits = h.float() @ head.float()
+    for a in reversed(axes):
+        logits = sharding_ctx.all_gather(logits, a, dim=logits.dim() - 1)
+    return logits

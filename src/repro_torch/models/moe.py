@@ -23,9 +23,11 @@ serving ignores.  On the mesh that loss is computed per data row (over
 the row's tokens) and averaged over the rows, as the reference's
 ``pmean`` does: it is not the dense path's loss of the whole batch, so
 the two paths agree only where nothing drops and the batch is one row.
+Within ``drop_tally()`` each dispatch also counts the pairs it dropped.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -36,6 +38,25 @@ from . import sharding_ctx as sc
 from .config import ModelConfig
 from .layers import FSDP, TP, _init
 from .sharding_ctx import P
+
+
+# The dropped-pair counts of this process's dispatches, where a caller asks
+# for them (``drop_tally``); None otherwise.
+_DROPS = None
+
+
+@contextlib.contextmanager
+def drop_tally():
+    """Within ``with``: a list that gets, for each MoE dispatch of this
+    process, the (token, expert) pairs it dropped at capacity as a device
+    scalar (no host read): the dense dispatch's overfull buckets, or the
+    mesh's outbound row buckets and its owner-side expert buffers."""
+    global _DROPS
+    old, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = old
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -137,6 +158,8 @@ def moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig,
     flat_e = idx.reshape(t * k)
     pos = positions_in_bucket(flat_e)
     keep = pos < cap
+    if _DROPS is not None:
+        _DROPS.append((~keep).sum())
     pair = torch.arange(t * k, device=x.device)
     slot = flat_e * cap + pos
 
@@ -258,6 +281,8 @@ def moe_shard_map(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh,
         lec = torch.where(valid, recv_le, e_row)
         pos2 = positions_in_bucket(lec)
         keep2 = valid & (pos2 < c2)
+        if _DROPS is not None:
+            _DROPS.append((~keep).sum() + (valid & ~keep2).sum())
         eslot_of = torch.where(keep2, lec * c2 + pos2, e_row * c2)  # [tr]
         slot_tok = _fill_scatter(e_row * c2, eslot_of,
                                  torch.arange(tr, device=x.device), tr)

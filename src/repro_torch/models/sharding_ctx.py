@@ -23,6 +23,12 @@ process's loss is its share of the global loss (:func:`batch_share`,
 the processes -- which the transposes compute -- is the gradient of the
 global loss; a leaf replicated over an axis then sums its gradient over it
 (``launch.steps``).
+
+In serving (``full_batch=False``) the batch rows are split over the data
+axes only and the KV cache's sequence over ``model`` (the sanitized
+``cache_specs``, installed with ``cache=``): :func:`cache_block` says which
+rows of the sequence this process holds, and :func:`softmax_combine`
+merges the partial softmaxes of the blocks.
 """
 from __future__ import annotations
 
@@ -51,18 +57,23 @@ def stacked(spec: "P", lead: int = 1) -> "P":
 
 
 _CTX: dict = {"active": False, "dp": (), "tp": (), "sizes": {},
-              "mesh": None, "params": None, "batch": ()}
+              "mesh": None, "params": None, "batch": (), "cache": None}
+
+# The sequence dimension of a stacked K/V cache [L, B, KV, S, D].
+CACHE_SEQ_DIM = 3
 
 
 @contextlib.contextmanager
 def sharding_context(mesh, full_batch: bool = False, *, params=None,
-                     batch: tuple = ()):
+                     batch: tuple = (), cache=None):
     """``full_batch=True`` (training): the batch dim shards over EVERY mesh
     axis (ZeRO-3 posture), in the order ("data", "model", "pod"): a dim
     that does not divide drops axes from the END.  ``params``: the tree of
     :class:`~repro_torch.launch.mesh.Sharding` of the parameters each
     process holds blocks of (``gathered`` reads it); ``batch``: the axes
-    the local batch rows are split over."""
+    the local batch rows are split over; ``cache``: the
+    :class:`~repro_torch.launch.mesh.Sharding` of the K/V cache each
+    process holds a block of (``cache_block`` reads it)."""
     names = tuple(mesh.axis_names)
     old = dict(_CTX)
     dp_order = ("data", "model", "pod") if full_batch else ("pod", "data")
@@ -74,6 +85,7 @@ def sharding_context(mesh, full_batch: bool = False, *, params=None,
         mesh=mesh,
         params=params,
         batch=tuple(batch),
+        cache=cache,
     )
     try:
         yield
@@ -147,6 +159,55 @@ def _replicas() -> int:
     sizes = _CTX["sizes"]
     return math.prod(sizes.values()) // math.prod(
         sizes[a] for a in batch_axes())
+
+
+def block_of(sh, dim: int, rows: int) -> tuple:
+    """``(first index, axes)`` of this process's block along ``dim`` of a
+    tensor laid out by the :class:`~repro_torch.launch.mesh.Sharding`
+    ``sh``, ``rows`` entries long here: the block's first global index and
+    the mesh axes ``dim`` is split over, as ``Sharding.index`` reads them.
+    ``(0, ())`` where the dimension is whole (``sh`` None, or no axis)."""
+    spec = () if sh is None else tuple(sh.spec)
+    entry = spec[dim] if dim < len(spec) else None
+    if entry is None or live_mesh() is None:
+        return 0, ()
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    mesh = live_mesh()
+    block = 0
+    for a in axes:
+        block = block * mesh.sizes[a] + mesh.coords[a]
+    return block * rows, axes
+
+
+def cache_block(rows: int) -> tuple:
+    """``block_of`` the K/V cache's sequence (the installed cache
+    sharding), ``rows`` rows here.  ``(0, ())`` where the whole sequence is
+    local: outside a mesh, or where the sanitized spec dropped the split (a
+    length that ``model`` does not divide)."""
+    return block_of(_CTX["cache"] if live_mesh() is not None else None,
+                    CACHE_SEQ_DIM, rows)
+
+
+def softmax_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                    axes: tuple) -> torch.Tensor:
+    """The softmax-weighted sum over every block of keys, from each
+    process's partial one over its own block: ``o`` the unnormalised sum
+    ``sum_j exp(s_j - m) v_j``, ``m`` [..., 1] the block's row maximum
+    (``-inf`` where the block holds no visible key) and ``l`` [..., 1] the
+    sum of its weights, all float32.  Over each axis of ``axes``, in rank
+    order: ``M = pmax(m)``, ``o = psum(o exp(m - M))``, ``l = psum(l exp(m -
+    M))``; then ``o / l``.  A block with no visible key contributes exact
+    zeros, and a row that sees no key anywhere gives 0 (the one-process
+    path's zeroed NaN).  Every process of the line gets the same bits."""
+    mesh = live_mesh()
+    d = o.shape[-1]
+    for a in axes:
+        g = mesh.group(a)
+        top = g.pmax(m)
+        w = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+        ol = g.psum(torch.cat([o * w, l * w], dim=-1))
+        o, l, m = ol[..., :d], ol[..., d:], top
+    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
 
 
 def batch_share(x):
@@ -284,14 +345,21 @@ def gathered(tree, *path, keep: tuple = ()):
 
 def relayout(x: torch.Tensor, have: tuple, want: tuple) -> torch.Tensor:
     """The local block of ``x`` (split along axis 0 over ``have``) as the
-    block of the layout split over ``want`` instead."""
-    if tuple(have) == tuple(want):
+    block of the layout split over ``want`` instead: gathered over the
+    axes of ``have`` past the two layouts' common leading axes, then cut
+    to the block of the rest of ``want`` (no collective where ``want``
+    only splits ``have``'s blocks further)."""
+    have, want = tuple(have), tuple(want)
+    if have == want:
         return x
-    for a in reversed(have):
+    c = 0
+    while c < min(len(have), len(want)) and have[c] == want[c]:
+        c += 1
+    for a in reversed(have[c:]):
         x = all_gather(x, a, 0)
     mesh = live_mesh()
     block, n = 0, 1
-    for a in want:
+    for a in want[c:]:
         block = block * mesh.sizes[a] + mesh.coords[a]
         n *= mesh.sizes[a]
     rows = x.shape[0] // n

@@ -94,7 +94,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Returns ``(hidden [B,S,d], caches, aux)``: with ``caches``, each
     layer's K/V rows are written into them in place and their ``idx``
     advances by S; without, ``None``.  ``aux`` sums the layers' MoE
-    load-balance losses (0.0 for a dense model, and with ``caches``)."""
+    load-balance losses (0.0 for a dense model, and with ``caches``).  On
+    a mesh ``caches`` is this process's block (batch over data, sequence
+    over model), ``idx`` the global fill, and each layer's parameters are
+    gathered where it runs."""
     h = L.embed(params["embed"], tokens)
     windows = layer_windows(cfg)
     aux = 0.0
@@ -107,7 +110,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         else:
             cache = {"k": caches["k"][i], "v": caches["v"][i],
                      "idx": caches["idx"]}
-            h, a = _layer_apply(lp, h, cfg, win, cache, positions)
+            # On a mesh: the layer's blocks gathered, the experts' kept.
+            lp = sharding_ctx.gathered(
+                lp, "layers", i, keep=("ffn",) if cfg.num_experts else ())
+            h, a = _layer_apply(lp, h, cfg, win, cache, positions,
+                                ("layers", i))
         aux = aux + a
     if caches is not None:
         caches = {**caches, "idx": caches["idx"] + h.shape[1]}
@@ -127,7 +134,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
     """Empty KV cache: k, v [L, B, KV, max_len, D] and the fill ``idx``
-    (one int for every layer: the layers advance together)."""
+    (one int for every layer: the layers advance together).  A process of
+    a mesh holds its block of it (``launch.steps.local_cache``)."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_len,
              cfg.head_dim)
