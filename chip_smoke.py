@@ -177,7 +177,12 @@ exit code:
                  Prints the transport, per bc_mode rank 0's ms per query
                  per kind and rung, the stream's collective bytes beside
                  what the transport moved, each process's peak memory and
-                 the phase wall; with SHARDS cards it also runs
+                 the phase wall; then each process runs the dry run's graph
+                 engine cell live on its graph (launch.dryrun
+                 .run_graph_cell: BFS, SSSP, BC and ring BC once from one
+                 source a rank, vcap 16384 cut from 131072), whose
+                 collective bytes per kind must be the same on every rank,
+                 and prints them; with SHARDS cards it also runs
                  transport="nccl", one card per rank, else it says so;
   3h. LM families -- the SSM, hybrid and encoder-decoder models
                  (FAMILY_ARCHS: mamba2_780m, zamba2_12b, whisper_large_v3)
@@ -282,13 +287,40 @@ exit code:
                  decode step, the transport's share, rank 0's busy share of
                  one profiled decode step, peak memory per process and the
                  dry run's counted bytes;
+  3m. LM families on the mesh -- the same four processes and mesh serving the
+                 SSM, hybrid and encoder-decoder families (FAMILY_MESH_RUNS:
+                 mamba2_780m, zamba2_12b at batch 4, prompt 2048;
+                 whisper_large_v3 at 224 tokens over 1500 frames into a
+                 256-row cache; full width and depth, bf16, 2 greedy decode
+                 steps (FAMILY_MESH_DECODE, cut from 8 for the run's time) in
+                 the reference's layout: the SSM state's channels (conv) and
+                 heads (ssd) and every K/V cache's sequence over "model", each
+                 leaf checked split.  Each data row's rows are held against
+                 one process on the card serving the same rows on the same
+                 seed-0 weights and its greedy tokens: every step's logits and
+                 every cache leaf, as the prefill left it and after the decode
+                 steps, within LM_REL_TOL, argmax agreement printed beside how
+                 far the one process's bf16 prefill lies from its float32 one
+                 (tools/mesh_drift.py runs more decode steps, in bf16 and in
+                 float32);
+                 flash_attention must launch 0 / 6 / 96 times a prefill in
+                 every process and never on a decode step, rank 0's first call
+                 of each shape held against the plain version.  Then the
+                 reduced configs in float32 (FAMILY_MESH_F32: a prompt,
+                 Whisper's with frames, a continuation without -- the split
+                 cross cache's merged softmax -- and decode steps) against one
+                 process on the card to rtol = atol = 1e-4, and the dry run's
+                 live prefill_32k and decode_32k cells of the three and
+                 long_500k of the two SSM archs at SERVE_DRYRUN_SEQ.  The
+                 model ranks of a data row must hold the same logits bit for
+                 bit.  Prints what 3l prints;
   4. report   -- one JSON line of kernels, the nvidia-smi line, and as the
                  last line {"ok": true, "device": {...}}.  count_mm_masked's
                  launches are those of 3a, 3e, 3g and 3j (summed over 3j's
-                 processes); bool_mm_masked's and minplus_mm_masked's
-                 those of 3b, 3c, 3g and 3j;
-                 flash_attention's those of 3d, 3h, 3i and 3l (summed over
-                 3l's processes).  The masked rows
+                 processes, its graph cell included); bool_mm_masked's and
+                 minplus_mm_masked's those of 3b, 3c, 3g and 3j;
+                 flash_attention's those of 3d, 3h, 3i, 3l and 3m (summed
+                 over 3l's and 3m's processes).  The masked rows
                  carry their band-shape timings under "band" (and
                  count_mm_masked's backward under "band_t"), the
                  flash_attention row 3h's four shapes under "encdec" and
@@ -3591,6 +3623,18 @@ def dist_rank(mesh, cfg, stream, sources, ref_path):
             "moved": moved, "launches": launches, "stats": st.as_dict(),
             "peak": torch.cuda.max_memory_allocated(dev) if card else 0}
         tel.close()
+    # the dry run's graph engine cell, live on this graph (vcap cut)
+    from repro_torch.launch import dryrun
+
+    for k in (kb, kmp, kc):
+        k.reset_launches()
+    t0 = time.perf_counter()
+    cell = dryrun.run_graph_cell(mesh, state, src_chunk=SRC_CHUNK)
+    cell["wall"] = time.perf_counter() - t0
+    cell["launches"] = {"bool_mm_masked": kb.LAUNCHES["bool_mm_masked"],
+                        "minplus_mm_masked": kmp.LAUNCHES["minplus_mm_masked"],
+                        "count_mm_masked": kc.LAUNCHES["count_mm_masked"]}
+    out["graph_cell"] = cell
     return out
 
 
@@ -3631,6 +3675,7 @@ def dist_phase(torch, np, timings, ref):
             wall = time.perf_counter() - t0
             timings[f"3j {transport} (spawn to join)"] = wall
             report_dist(outs, transport)
+            report_graph_cell(outs, transport)
             for out in outs:
                 for mode in out.values():
                     for name, n in mode["launches"].items():
@@ -3647,6 +3692,23 @@ def dist_cfg() -> dict:
     names = ("N_VERTICES", "N_EDGES", "SEED", "COMMITS", "RING_COMMITS",
              "SRC_CHUNK", "RING_DEPTH", "BATCH_SIZE")
     return {k: globals()[k] for k in names}
+
+
+def report_graph_cell(outs, transport):
+    """The dry run's live graph cell: each kind's collective bytes, the
+    same on every rank (each runs the same collectives), and its wall."""
+    from repro_torch.launch import dryrun
+
+    cells = [o["graph_cell"] for o in outs]
+    for kind in dryrun.GRAPH_KINDS:
+        if any(c[kind] != cells[0][kind] for c in cells) or not cells[0][kind]:
+            raise AssertionError(f"3j graph cell {kind}: collective bytes "
+                                 f"{[c[kind] for c in cells]}")
+    c = cells[0]
+    log(f"  {transport} dry run's graph cell, vcap {c['vcap']} (cut from "
+        f"{c['reduced']['vcap'][0]}; vp {c['vp']}), {c['n_sources']} "
+        f"sources, {c['wall']:.1f} s (rank 0): counted bytes a rank " +
+        "; ".join(f"{k} {c[k]}" for k in dryrun.GRAPH_KINDS))
 
 
 def report_dist(outs, transport):
@@ -4213,13 +4275,16 @@ def sync(torch, dev):
 
 
 def serve_one_process(torch, cfg, prompts, n_dec, max_len, chunks=(),
-                      floor=False):
-    """One process on the card: the prompt (then each continuation of
-    ``chunks``) and ``n_dec`` greedy decode steps, through
-    build_prefill_step / build_decode_step.  Returns every step's logits
-    and wall, the greedy tokens, the cache and the dropped pairs; with
-    ``floor``, also how far the prefill's logits lie from the same prefill
-    in float32 on the same weights (what bf16 rounding alone moves)."""
+                      floor=False, frames=None):
+    """One process on the card: the prompt (with Whisper's ``frames``;
+    then each continuation of ``chunks``) and ``n_dec`` greedy decode
+    steps, through build_prefill_step / build_decode_step.  Returns every
+    step's logits and wall, the greedy tokens, the cache (``k``, ``v``
+    where it has them; every leaf by path under ``cache``, and as the
+    first prefill left it under ``prefill_cache``) and the dropped pairs;
+    with ``floor``, also how far the prefill's logits lie from the same
+    prefill in float32 on the same weights (what bf16 rounding alone
+    moves)."""
     from repro_torch.launch import steps
     from repro_torch.models import get_model, moe
 
@@ -4231,18 +4296,21 @@ def serve_one_process(torch, cfg, prompts, n_dec, max_len, chunks=(),
     decode = steps.build_decode_step(model)
     rec = {"logits": [], "walls": [], "tokens": []}
 
-    def run(step, t):
+    def run(step, t, **extra):
         nonlocal cache
         sync(torch, DEV)
         t0 = time.perf_counter()
-        logits, cache = step(params, cache, {"tokens": t})
+        logits, cache = step(params, cache, {"tokens": t, **extra})
         sync(torch, DEV)
         rec["walls"].append(time.perf_counter() - t0)
         rec["logits"].append(logits.float().cpu())
         return logits
 
     with moe.drop_tally() as drops:
-        logits = run(prefill, prompts)
+        logits = run(prefill, prompts, **({} if frames is None
+                                          else {"frames": frames}))
+        rec["prefill_cache"] = {p: t.to("cpu", copy=True)
+                                for p, t in cache_leaves(cache).items()}
         for c in chunks:
             logits = run(prefill, c)
         for _ in range(n_dec):
@@ -4252,7 +4320,10 @@ def serve_one_process(torch, cfg, prompts, n_dec, max_len, chunks=(),
         rec["drops"] = int(torch.stack(drops).sum()) if drops else 0
     rec["tokens"] = (torch.cat(rec["tokens"], dim=1) if rec["tokens"]
                      else torch.zeros((prompts.shape[0], 0), dtype=torch.long))
-    rec["k"], rec["v"] = (cache[k].to("cpu", copy=True) for k in ("k", "v"))
+    rec["cache"] = {p: t.to("cpu", copy=True)
+                    for p, t in cache_leaves(cache).items()}
+    rec.update((k, rec["cache"][f"/{k}"]) for k in ("k", "v")
+               if f"/{k}" in rec["cache"])
     del cache
     if floor:
         import dataclasses
@@ -4261,8 +4332,10 @@ def serve_one_process(torch, cfg, prompts, n_dec, max_len, chunks=(),
         params = to_float32(torch, params)
         cache = f32.init_cache(prompts.shape[0], prompts.shape[1],
                                dtype=torch.float32, device=DEV)
-        logits, _ = steps.build_prefill_step(f32)(params, cache,
-                                                   {"tokens": prompts})
+        b = {"tokens": prompts}
+        if frames is not None:
+            b["frames"] = frames
+        logits, _ = steps.build_prefill_step(f32)(params, cache, b)
         rec["floor"] = rel_l2(torch, rec["logits"][0], logits.cpu())
     del params
     return rec
@@ -4650,6 +4723,406 @@ def report_serve(r0, runs, ref, arch, transport, full):
         f"{r['peak'] / 2**30:.2f} GiB" for r in runs))
 
 
+# --------------------------------- phase 3m --------------------------------
+
+# Sharded serving of the SSM, hybrid and encoder-decoder families on the
+# LM_MESH mesh of processes on the one card (gloo), in the reference's layout:
+# parameters in blocks, the cache's batch over "data" and, over "model", the
+# SSM state's channels (conv) and heads (ssd) and the K/V caches' sequence
+# (Zamba2's shared block, Whisper's self- and cross-attention), the batch rows
+# over "data".  FAMILY_MESH_RUNS: arch, prompt, cache rows (room for the
+# decode steps and the profiled one, split in two); each at full width and
+# depth in bf16, LM_BATCH rows and FAMILY_MESH_DECODE greedy decode steps (cut
+# from 8 for the run's time: a step gathers 2.2e9 to 3.1e9 B of parameters
+# through gloo, 4.4 to 8 s), Whisper's prompt over the config's 1500 frames
+# drawn from a generator seeded 2; one more decode step of the first, rank 0's
+# under the profiler.  Each data row's rows are held against one process on
+# the card serving the same rows (the products of a mesh process's shapes: a
+# random-init SSM stack carries every rounding into each later layer) on the
+# same seed-0 weights and that process's greedy tokens.  FAMILY_MESH_F32: the
+# reduced configs in float32 (a prompt, with Whisper's frames, a continuation
+# without, decode steps) held to SERVE_F32_TOL against one process on the
+# whole batch.  FAMILY_MESH_CELLS: the dry run's serving cells, at
+# SERVE_DRYRUN_SEQ.
+FAMILY_MESH_DECODE = 2
+FAMILY_MESH_RUNS = (
+    ("mamba2_780m", LM_PROMPT, LM_PROMPT + 2 * FAMILY_MESH_DECODE),
+    ("zamba2_12b", LM_PROMPT, LM_PROMPT + 2 * FAMILY_MESH_DECODE),
+    ("whisper_large_v3", WHISPER_PROMPT, 256))
+FAMILY_MESH_F32 = FAMILY_ARCHS
+FAMILY_MESH_CELLS = (
+    ("mamba2_780m", ("prefill_32k", "decode_32k", "long_500k")),
+    ("zamba2_12b", ("prefill_32k", "decode_32k", "long_500k")),
+    ("whisper_large_v3", ("prefill_32k", "decode_32k")))
+
+
+def cache_leaves(tree, prefix="") -> dict:
+    """A cache's tensors (or its shardings' specs) by path; the fill
+    ``idx`` and an absent hybrid ``tail`` give nothing."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(cache_leaves(v, f"{prefix}/{k}"))
+        return out
+    if hasattr(tree, "spec"):
+        return {prefix: tuple(tree.spec)}
+    return {prefix: tree} if hasattr(tree, "shape") else {}
+
+
+def family_frames(torch, cfg):
+    """Whisper's frames [LM_BATCH, encoder_seq, d] from a generator seeded
+    2 (serve's draw), or None."""
+    if not cfg.encoder_layers:
+        return None
+    draw = torch.Generator(device=DEV).manual_seed(2)
+    return torch.randn((LM_BATCH, cfg.encoder_seq, cfg.d_model),
+                       generator=draw, device=DEV)
+
+
+def family_mesh_rank(mesh, cfg, feeds):
+    """One process of phase 3m (the block above): FAMILY_MESH_RUNS and
+    FAMILY_MESH_F32 on its blocks, and the dry run's live serving cells.
+    ``cfg``: the parent's sizes; ``feeds``: the prompts, frames and the
+    one process's greedy tokens of each run."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import dryrun, mesh as meshlib
+
+    globals().update(cfg)
+    meshlib.make_production_mesh(mesh, shape=LM_MESH)
+    card = mesh.device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    # Flash calls: the wrapper's launch count on the card; on the CPU (a
+    # rehearsal) its plain version launches nothing, so the calls.
+    calls, real = [], kops.flash_attention
+
+    def counted(*a, **kw):
+        calls.append(tuple(a[1].shape))
+        return real(*a, **kw)
+    kops.flash_attention = counted
+    kf.reset_launches()
+    flash = (lambda: kf.LAUNCHES["flash_attention"]) if card else (
+        lambda: len(calls))
+    out = {"rank": mesh.rank, "coords": mesh.coords, "runs": [], "f32": []}
+    for i, ((arch, _, max_len), feed) in enumerate(zip(FAMILY_MESH_RUNS,
+                                                       feeds["runs"])):
+        with FlashCapture() as cap:
+            run = family_serve(torch, mesh, serve_config(arch), feed,
+                               max_len, flash, profile=i == 0)
+        if mesh.rank == 0:      # the kernel's inputs, held in the parent
+            run["captured"] = [tuple(x.cpu() if hasattr(x, "cpu") else x
+                                     for x in c) for c in cap.calls.values()]
+        out["runs"].append(run)
+    for arch, feed in zip(FAMILY_MESH_F32, feeds["f32"]):
+        out["f32"].append(family_serve(
+            torch, mesh, serve_f32_config(arch, None), feed,
+            SERVE_F32_PROMPT + SERVE_F32_CONT + SERVE_F32_DECODE, flash))
+    out["dryrun"] = {}
+    for arch, shapes in FAMILY_MESH_CELLS:
+        for shape in shapes:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, mesh, out_dir=None,
+                                  seq=SERVE_DRYRUN_SEQ,
+                                  cfg=serve_config(arch)
+                                  if SERVE_REDUCED else None)
+            out["dryrun"][(arch, shape)] = {k: rec[k] for k in (
+                "depth1", "depth2", "full", "units", "reduced", "batch",
+                "seq")}
+            out["dryrun"][(arch, shape)]["wall"] = time.perf_counter() - t0
+    out["launches"] = flash()
+    kops.flash_attention = real
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def family_serve(torch, mesh, cfg, feed, max_len, flash, profile=False):
+    """One run of 3m on this process's blocks: the prompt (with Whisper's
+    frames), each continuation of ``feed["chunks"]`` and a decode step per
+    fed token.  Per step: this process's logits, wall, flash launches,
+    collective bytes counted and moved, time in the transport; every
+    cache leaf's block and spec, the peak memory; with ``profile`` one
+    more decode step, rank 0's under torch.profiler."""
+    from repro_torch.data import shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+
+    dev, card = mesh.device, mesh.device.type == "cuda"
+    tally = mesh.group()
+    model = get_model(cfg)
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = steps.local_state(
+        model.init(torch.Generator(device=dev).manual_seed(0)),
+        steps.mesh_param_shardings(model, mesh))
+    prefill = steps.build_prefill_step(model, mesh=mesh)
+    decode = steps.build_decode_step(model, mesh=mesh)
+    prompts, tokens = feed["prompts"], feed["tokens"]
+    cache = steps.local_cache(model, mesh, prompts.shape[0], max_len,
+                              dtype=cfg.dtype)
+    out = {"layers": cfg.num_layers, "steps": [], "logits": []}
+
+    def run(step, b):
+        nonlocal cache
+        bt = shard_batch(b, mesh=mesh, full_batch=False)
+        n0, c0, m0 = flash(), dict(tally.bytes), dict(tally.moved)
+        s0 = mesh.transport_s
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, bt)
+        sync(torch, dev)
+        out["steps"].append({
+            "wall": time.perf_counter() - t0, "flash": flash() - n0,
+            "transport_s": mesh.transport_s - s0,
+            "bytes": {k: v - c0.get(k, 0) for k, v in tally.bytes.items()
+                      if v > c0.get(k, 0)},
+            "moved": {k: v - m0.get(k, 0) for k, v in tally.moved.items()
+                      if v > m0.get(k, 0)}})
+        out["logits"].append(logits.float().cpu())
+
+    first = {"tokens": prompts}
+    if feed.get("frames") is not None:
+        first["frames"] = feed["frames"]
+    run(prefill, first)
+    out["prefill_cache"] = {p: t.to("cpu", copy=True)
+                            for p, t in cache_leaves(cache).items()}
+    for c in feed.get("chunks", ()):
+        run(prefill, {"tokens": c})
+    for j in range(tokens.shape[1]):
+        run(decode, {"tokens": tokens[:, j:j + 1]})
+    out["cache"] = {p: t.to("cpu", copy=True)
+                    for p, t in cache_leaves(cache).items()}
+    out["specs"] = cache_leaves(cache.shardings)
+    out["peak"] = torch.cuda.max_memory_allocated(dev) if card else 0
+    if profile:     # every process steps; rank 0 under the profiler
+        bt = shard_batch({"tokens": tokens[:, -1:]}, mesh=mesh,
+                         full_batch=False)
+        if card:
+            out["profiled"] = profiled_step(
+                torch, lambda: decode(params, cache, bt), mesh.rank == 0)
+        else:
+            decode(params, cache, bt)
+    del params, cache
+    return out
+
+
+def family_mesh_cfg() -> dict:
+    names = ("LM_MESH", "LM_TIMEOUT", "LM_BATCH", "FAMILY_MESH_RUNS",
+             "FAMILY_MESH_F32", "FAMILY_MESH_CELLS", "SERVE_F32_PROMPT",
+             "SERVE_F32_CONT", "SERVE_F32_DECODE", "SERVE_DRYRUN_SEQ",
+             "SERVE_REDUCED")
+    return {k: globals()[k] for k in names}
+
+
+def family_references(torch, timings):
+    """The one-process runs 3m's mesh is held against, on the card: each
+    FAMILY_MESH_RUNS model on each data row's rows, and each
+    FAMILY_MESH_F32 one on the whole batch.  Returns (references, feeds),
+    the feeds as numpy arrays for the processes."""
+    refs, feeds = {"runs": [], "f32": []}, {"runs": [], "f32": []}
+    rows = LM_BATCH // LM_MESH[0]
+    for arch, prompt, max_len in FAMILY_MESH_RUNS:
+        cfg = serve_config(arch)
+        prompts, frames = serve_prompts(torch, cfg, prompt), \
+            family_frames(torch, cfg)
+        t0 = time.perf_counter()
+        parts = [serve_one_process(
+            torch, cfg, prompts[r:r + rows], FAMILY_MESH_DECODE, max_len,
+            floor=r == 0, frames=None if frames is None
+            else frames[r:r + rows]) for r in range(0, LM_BATCH, rows)]
+        timings[f"3m {arch} one process (each data row's rows)"] = \
+            time.perf_counter() - t0
+        refs["runs"].append(parts)
+        feeds["runs"].append({
+            "prompts": prompts.cpu().numpy(),
+            "frames": None if frames is None else frames.cpu().numpy(),
+            "tokens": torch.cat([p["tokens"] for p in parts]).numpy()})
+        del frames
+        torch.cuda.empty_cache()
+    n = SERVE_F32_PROMPT + SERVE_F32_CONT
+    for arch in FAMILY_MESH_F32:
+        cfg = serve_f32_config(arch, None)
+        prompts, frames = serve_prompts(torch, cfg, n), \
+            family_frames(torch, cfg)
+        head, tail = (prompts[:, :SERVE_F32_PROMPT],
+                      prompts[:, SERVE_F32_PROMPT:])
+        ref = serve_one_process(torch, cfg, head, SERVE_F32_DECODE,
+                                n + SERVE_F32_DECODE, chunks=(tail,),
+                                frames=frames)
+        refs["f32"].append(ref)
+        feeds["f32"].append({
+            "prompts": head.cpu().numpy(), "chunks": [tail.cpu().numpy()],
+            "frames": None if frames is None else frames.cpu().numpy(),
+            "tokens": ref["tokens"].numpy()})
+    return refs, feeds
+
+
+def family_mesh_phase(torch, errs, timings):
+    """Phase 3m (the block above FAMILY_MESH_DECODE).  Returns the
+    flash_attention launches of the mesh's processes.  Every failure fails
+    the phase: a failed or hung process raises SpawnError."""
+    from repro_torch.shard import spawn
+
+    n = math.prod(LM_MESH)
+    for arch, prompt, max_len in FAMILY_MESH_RUNS:
+        cfg = serve_config(arch)
+        frames = f" over {cfg.encoder_seq} frames" if cfg.encoder_layers \
+            else ""
+        log(f"  {arch} ({cfg.family}): {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.dtype}; batch {LM_BATCH}, prompt {prompt}"
+            f"{frames}, {FAMILY_MESH_DECODE} decode steps, cache {max_len} "
+            f"rows")
+    log(f"  gloo only: {n} processes on {DEV}:0 (NCCL needs one card a "
+        f"rank)")
+    t0 = time.perf_counter()
+    refs, feeds = family_references(torch, timings)
+    timings["3m one-process references"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = spawn(family_mesh_rank, n, device=f"{DEV}:0" if DEV == "cuda"
+                 else DEV, transport="gloo", timeout=LM_TIMEOUT,
+                 join_timeout=LM_JOIN, args=(family_mesh_cfg(), feeds))
+    timings["3m gloo (spawn to join)"] = time.perf_counter() - t0
+    launched = family_mesh_check(torch, errs, outs, refs)
+    torch.cuda.empty_cache()
+    return launched
+
+
+def row_whole(torch, outs, which, i, d, path, key="cache"):
+    """Data row ``d``'s whole leaf at ``path`` of ``key`` (the cache at
+    the end, or as the first prefill left it): its processes' blocks
+    joined along the dimensions the leaf's spec splits over "model"."""
+    row = sorted((o for o in outs if o["coords"]["data"] == d),
+                 key=lambda o: o["coords"]["model"])
+    spec = row[0][which][i]["specs"][path]
+    x = [o[which][i][key][path] for o in row]
+    dims = [k for k, e in enumerate(spec) if e == "model"]
+    return torch.cat(x, dim=dims[0]) if dims else x[0]
+
+
+def family_mesh_check(torch, errs, outs, refs):
+    """3m's checks and lines, in this process, on what the processes
+    returned.  Returns the flash launches summed over the processes."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    for o in outs:              # the same bits on the model ranks of a row
+        twin = next(p for p in outs if p is not o
+                    and p["coords"]["data"] == o["coords"]["data"])
+        for which in ("runs", "f32"):
+            for a, b in zip(o[which], twin[which]):
+                if not all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                             b["logits"])):
+                    raise AssertionError(f"3m: rank {o['rank']}'s logits "
+                                         "differ from its twin's")
+    rows = LM_BATCH // LM_MESH[0]
+    for i, (arch, prompt, max_len) in enumerate(FAMILY_MESH_RUNS):
+        parts, cfg = refs["runs"][i], serve_config(arch)
+        runs = [o["runs"][i] for o in outs]
+        want = [flash_per_prefill(cfg)] + [0] * FAMILY_MESH_DECODE
+        for r in runs:
+            split = [p for p, sp in r["specs"].items() if "model" in sp]
+            if sorted(split) != sorted(r["cache"]) or not split:
+                raise AssertionError(f"3m {arch}: cache leaves not split over "
+                                     f"'model': {r['specs']}")
+            if [s["flash"] for s in r["steps"]] != want:
+                raise AssertionError(
+                    f"3m {arch}: flash launches a step "
+                    f"{[s['flash'] for s in r['steps']]}, not {want}")
+            if not all(bool(torch.isfinite(x).all()) for x in r["logits"]):
+                raise AssertionError(f"3m {arch}: non-finite logits")
+        l2, agree, at_prefill, at_end = [], [], {}, {}
+        for d, ref in enumerate(parts):
+            got = [o["runs"][i]["logits"] for o in outs
+                   if o["coords"] == {"data": d, "model": 0}][0]
+            l2 += [rel_l2(torch, g, w) for g, w in zip(got, ref["logits"])]
+            agree += [float((g.argmax(-1) == w.argmax(-1)).float().mean())
+                      for g, w in zip(got, ref["logits"])]
+            for key, l2s in (("prefill_cache", at_prefill),
+                             ("cache", at_end)):
+                for path, whole in ref[key].items():
+                    mine = row_whole(torch, outs, "runs", i, d, path, key)
+                    if tuple(mine.shape) != tuple(whole.shape):
+                        raise AssertionError(f"3m {arch} {path}: blocks give "
+                                             f"{tuple(mine.shape)}, not "
+                                             f"{tuple(whole.shape)}")
+                    l2s[path] = max(l2s.get(path, 0.0),
+                                    rel_l2(torch, mine, whole))
+        blocks = {p: tuple(t.shape) for p, t in runs[0]["cache"].items()}
+        log(f"  gloo {arch} ({cfg.num_layers} layers) on the mesh vs one "
+            f"process on each data row's {rows} rows: logits rel L2 max "
+            f"{max(l2):.3g} over {len(l2) // len(parts)} steps (prefill "
+            f"{max(l2[0], l2[len(l2) // 2]):.3g}; one process's bf16 prefill "
+            f"is {parts[0]['floor']:.3g} from its float32 one), argmax "
+            f"agreement {statistics.mean(agree):.3f}; cache rel L2 after the "
+            f"prefill " + ", ".join(f"{p} {v:.3g}" for p, v in sorted(
+                at_prefill.items())) + "; after the decode steps "
+            + ", ".join(f"{p} {v:.3g}" for p, v in sorted(at_end.items())))
+        log(f"    blocks a process (split over 'model'): {blocks}; flash "
+            f"launches a step {want}")
+        if not (max(l2) < LM_REL_TOL
+                and max(at_prefill.values()) < LM_REL_TOL
+                and max(at_end.values()) < LM_REL_TOL):
+            raise AssertionError(f"3m {arch}: the mesh's logits or cache "
+                                 f"differ from one process's")
+        report_serve(runs[0], runs, parts[0], arch, "gloo", full=False)
+        for q, k, v, kw in runs[0].get("captured", []):
+            q, k, v = q.to(DEV), k.to(DEV), v.to(DEV)
+            errs.check(torch, "flash_attention",
+                       kf.flash_attention(q, k, v, **kw),
+                       flash_attention_ref(q, k, v, **kw), False,
+                       f"3m {arch} {tuple(q.shape)} x {k.shape[2]}",
+                       FLASH_TOL[str(q.dtype).split(".")[-1]])
+    for i, arch in enumerate(FAMILY_MESH_F32):
+        ref = refs["f32"][i]
+        cfg = serve_f32_config(arch, None)
+        got = [torch.cat([o["f32"][i]["logits"][j] for o in sorted(
+            (o for o in outs if o["coords"]["model"] == 0),
+            key=lambda o: o["coords"]["data"])]) for j in range(
+                len(ref["logits"]))]
+        worst = max(float((g - w).abs().max()) for g, w in zip(
+            got, ref["logits"]))
+        same = all(torch.allclose(g, w, **SERVE_F32_TOL)
+                   for g, w in zip(got, ref["logits"]))
+        for path, whole in ref["cache"].items():
+            mine = torch.cat([row_whole(torch, outs, "f32", i, d, path)
+                              for d in range(LM_MESH[0])],
+                             dim=[k for k, e in enumerate(
+                                 outs[0]["f32"][i]["specs"][path])
+                                 if e == "data"][0])
+            same = same and torch.allclose(mine, whole, **SERVE_F32_TOL)
+        flashes = [s["flash"] for s in outs[0]["f32"][i]["steps"]]
+        fpp = flash_per_prefill(cfg)
+        want = [fpp, fpp - cfg.encoder_layers - cfg.num_layers
+                if cfg.encoder_layers else fpp] + [0] * SERVE_F32_DECODE
+        log(f"  gloo f32 reduced {arch}: {len(got)} steps (prompt "
+            f"{SERVE_F32_PROMPT}{', frames' if cfg.encoder_layers else ''},"
+            f" continuation {SERVE_F32_CONT}, {SERVE_F32_DECODE} decode) on "
+            f"the mesh vs one process on the card: logits max |diff| "
+            f"{worst:.3g}; logits and cache within rtol = atol = "
+            f"{SERVE_F32_TOL['rtol']}: {same}; flash launches a step "
+            f"{flashes}")
+        if not same or flashes != want:
+            raise AssertionError(f"3m f32 {arch}: the mesh differs from one "
+                                 f"process (flash launches {flashes}, not "
+                                 f"{want})")
+    for (arch, shape), dr in outs[0]["dryrun"].items():
+        cut = dr["reduced"].get("batch")
+        log(f"  gloo dry run, {arch} {shape} at full width, batch "
+            f"{f'{cut[0]} cut to ' if cut else ''}{dr['batch']} x "
+            f"{dr['seq']} ({dr['wall']:.1f} s): counted bytes a rank, depth "
+            f"1 {dr['depth1']['collectives']}, depth 2 "
+            f"{dr['depth2']['collectives']}, extrapolated to {dr['units']} "
+            f"units {dr['full']['collectives']}")
+    launched = sum(o["launches"] for o in outs)
+    log(f"  gloo flash_attention launches in 3m's processes: {launched} "
+        f"({', '.join(str(o['launches']) for o in outs)})")
+    log(f"  nvidia-smi: {nvidia_smi()}")
+    return launched
+
+
 def main() -> int:
     # cuBLAS is deterministic only with a fixed workspace (3i's training
     # runs under torch.use_deterministic_algorithms); set before the first
@@ -4804,6 +5277,14 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["flash_attention"] += lm_serve_phase(torch, errs, timings)
     timings["LM serve shard phase total"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    log(f"== phase 3m: sharded serving of the SSM, hybrid and "
+        f"encoder-decoder families ({', '.join(FAMILY_ARCHS)}, "
+        f"{'x'.join(map(str, LM_MESH))} (data, model) mesh of processes)")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += family_mesh_phase(torch, errs, timings)
+    timings["LM families shard phase total"] = time.perf_counter() - t0
     for k, v in timings.items():
         log(f"  wall {k}: {v:.2f} s")
 

@@ -18,7 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.shard.queries import ArgSpec, query_fn, query_shardings
+from repro_torch.shard.queries import (
+    REPLICATED,
+    ArgSpec,
+    query_fn,
+    query_shardings,
+)
 from repro_torch.shard.tile_shard import (
     _padded_dim,
     as_graph_mesh,
@@ -58,21 +63,23 @@ def build_query_inputs(state, mesh, srcs, *, tile: int = TILE):
 
 
 def distributed_query_specs(vcap: int, mesh, *, tile: int = TILE,
-                            n_sources: int = 8):
-    """The arguments of ``make_distributed_query``'s fn, allocated nowhere:
-    per argument an :class:`~repro_torch.shard.queries.ArgSpec` with its
-    global shape, its layout and the shape each rank holds -- the per-rank
-    band layout (the reference returns shardings for an AOT lowering).
-    ``n_sources`` must be a multiple of the rank count for ``"bc"``."""
+                            n_sources: int = 8, kind: str = "bfs"):
+    """The arguments of ``make_distributed_query(mesh, kind)``'s fn,
+    allocated nowhere: per argument an
+    :class:`~repro_torch.shard.queries.ArgSpec` with its global shape, its
+    layout and the shape each rank holds -- the per-rank band layout (the
+    reference returns shardings for an AOT lowering).  ``n_sources`` must
+    be a multiple of the rank count for the bc kinds, whose sources are
+    split over the ranks."""
     n = as_graph_mesh(mesh).size
     vp = _padded_dim(vcap, tile, n)
     nt = vp // tile
-    return (
-        ArgSpec((vp, vp), torch.float32, "band", (vp // n, vp)),      # w
-        ArgSpec((nt, nt), torch.int32, "band", (nt // n, nt)),        # occ
-        ArgSpec((vcap,), torch.bool, "replicated", (vcap,)),          # alive
-        ArgSpec((vcap,), torch.int32, "replicated", (vcap,)),         # ecnt
-        ArgSpec((n_sources,), torch.int32, "replicated",              # srcs
-                (n_sources,)),
-        ArgSpec((), torch.int32, "replicated", ()),                   # version
-    )
+    shapes = (((vp, vp), torch.float32), ((nt, nt), torch.int32),
+              ((vcap,), torch.bool), ((vcap,), torch.int32),
+              ((n_sources,), torch.int32), ((), torch.int32))
+    return tuple(
+        ArgSpec(shape, dtype, lay, shape if lay == REPLICATED
+                else (shape[0] // n,) + shape[1:])
+        for (shape, dtype), lay in zip(shapes,
+                                       query_shardings(mesh, kind)[0]))
+

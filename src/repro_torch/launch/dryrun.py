@@ -18,16 +18,27 @@ compiler to ask, so the cell splits in two:
     and extrapolates them to full depth as the reference does (per-unit
     delta x true depth).  The batch is cut to one sequence per process
     (train) or per data row (prefill, decode: the ``model`` ranks of a
-    row serve the same rows); the cuts are recorded.  Serving runs for
-    the transformer family (``steps.build_prefill_step(mesh=)``); the SSM,
-    hybrid and encoder-decoder families' serving cells raise
-    ``NotImplementedError`` (their sharded serving is the next slice).
+    row serve the same rows, and never more than the cell's batch); the
+    cuts are recorded.  Serving runs for every family
+    (``steps.build_prefill_step(mesh=)``): an SSM decode cell is one state
+    step, Whisper's prefill encodes frames drawn from seed 0 and its
+    decode cell serves from the zero cross cache of ``encoder_seq``
+    frames, as the reference's ``lower_cell`` lowers them.
+
+The graph engine's cell (the reference's ``run_graph_cell``) splits the
+same way: :func:`graph_layout_cell` gives each rank's padded ``vp``,
+argument shapes and bytes of the distributed BFS / SSSP / BC / BC-ring
+queries on a production mesh (``core.partition.distributed_query_specs``
+and the queries' layouts), and :func:`run_graph_cell` runs each kind once
+on a live graph mesh and records the collective bytes each counted.
 
 The CLI writes every cell's layout to ``experiments/dryrun_torch/``
-(git-ignored); ``run_cell`` is called on a live mesh (``chip_smoke.py``
-phases 3k and 3l, the tests):
+(git-ignored), with ``--graph`` the graph engine's too
+(``graph_engine.<mesh>.json``); ``run_cell`` and ``run_graph_cell`` are
+called on a live mesh (``chip_smoke.py`` phases 3j, 3k, 3l and 3m, the
+tests):
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--graph]
 """
 from __future__ import annotations
 
@@ -125,8 +136,7 @@ def _local(tree, shardings) -> tuple:
 def layout_cell(arch: str, shape_name: str, mesh_shape) -> dict:
     """Each rank's local shapes and bytes of one cell (no device)."""
     mesh = mesh_layout(mesh_shape)
-    name = "pod" + "x".join(map(str, mesh_shape)) if mesh_shape in (
-        (16, 16), (2, 16, 16)) else "mesh" + "x".join(map(str, mesh_shape))
+    name = mesh_name(mesh_shape)
     cfg = get_config(arch)
     rec = {"arch": arch, "shape": shape_name, "mesh": name,
            "n_ranks": mesh.size}
@@ -169,20 +179,17 @@ def run_cell(arch: str, shape_name: str, mesh, *, cfg=None,
     the cell's sequence length."""
     cfg = cfg or get_config(arch)
     seq_full, gbatch, kind = SHAPES[shape_name]
-    if kind != "train" and cfg.family not in steplib.MESH_SERVING_FAMILIES:
-        raise NotImplementedError(
-            f"{shape_name}: the dry run's {kind} cells of the {cfg.family} "
-            "family need its sharded serving (ROADMAP.md, queue 1, the next "
-            "slice: the SSM, hybrid and encoder-decoder caches on a mesh)")
     seq = seq or seq_full
-    # one sequence per process (train) or per data row (serving)
-    batch = mesh.size if kind == "train" else math.prod(
-        mesh.sizes[a] for a in meshlib.dp_axes(mesh))
+    # one sequence per process (train) or per data row (serving), at most
+    # the cell's own batch
+    batch = min(gbatch, mesh.size if kind == "train" else math.prod(
+        mesh.sizes[a] for a in meshlib.dp_axes(mesh)))
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(map(str, mesh.shape)), "n_ranks": mesh.size,
            "transport": mesh.transport, "units": unit_count(cfg),
-           "seq": seq, "batch": batch,
-           "reduced": {"batch": [gbatch, batch]}}
+           "seq": seq, "batch": batch, "reduced": {}}
+    if batch != gbatch:
+        rec["reduced"]["batch"] = [gbatch, batch]
     if seq != seq_full:
         rec["reduced"]["seq"] = [seq_full, seq]
     tally = mesh.group()
@@ -231,30 +238,105 @@ def run_cell(arch: str, shape_name: str, mesh, *, cfg=None,
 
 def _serving_step(model, mesh, kind: str, batch: int, seq: int, cache):
     """A serving cell's step and this process's rows of its batch: a
-    prefill of ``seq`` tokens into the empty cache of ``seq`` rows, or one
-    decode step at ``idx = seq - 1`` (the reference lowers its cells with
-    ``cache_len = seq``)."""
+    prefill of ``seq`` tokens into the empty cache of ``seq`` rows (with
+    Whisper's frames), or one decode step at ``idx = seq - 1`` (the
+    reference lowers its cells with ``cache_len = seq``; an SSM's state
+    has no fill, Whisper's cross cache stays zero)."""
     cfg = model.cfg
     tokens = SyntheticTokens(cfg.vocab_size, seq, batch, seed=0).batch_at(
         0)["tokens"]
+    b = {}
     if kind == "prefill":
         step = steplib.build_prefill_step(model, mesh=mesh)
         tokens, start = tokens[:, :seq], 0
+        if cfg.encoder_layers:
+            b["frames"] = np.random.default_rng(0).standard_normal(
+                (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     else:
         step = steplib.build_decode_step(model, mesh=mesh)
         tokens, start = tokens[:, :1], seq - 1
-        cache["idx"] = start
-    b = {"tokens": tokens}
+        fill = next((c for c in (cache, *cache.values())
+                     if isinstance(c, dict) and "idx" in c), None)
+        if fill is not None:
+            fill["idx"] = start
+    b["tokens"] = tokens
     if cfg.mrope_sections:      # text positions on every M-RoPE section
         pos = np.arange(start, start + tokens.shape[1], dtype=np.int32)
         b["positions"] = np.broadcast_to(pos, (3,) + tokens.shape).copy()
     return step, shard_batch(b, mesh=mesh, full_batch=False)
 
 
+GRAPH_KINDS = ("bfs", "sssp", "bc", "bc_ring")
+GRAPH_VCAP = 131072     # the reference's graph cell: Table 1's scale
+
+
+def mesh_name(shape) -> str:
+    return ("pod" if tuple(shape) in ((16, 16), (2, 16, 16)) else "mesh") \
+        + "x".join(map(str, shape))
+
+
+def graph_layout_cell(mesh_shape, vcap: int = GRAPH_VCAP,
+                      bc_vcap: int = 16384, n_sources: int = 512) -> dict:
+    """The graph engine's cell without a device (the reference's
+    ``run_graph_cell`` on the production mesh, every rank on the flattened
+    graph axis): per query kind the vertex capacity (gather-mode BC at
+    ``bc_vcap``: it all-gathers the row bands), the padded ``vp``, each
+    argument's global shape, layout and the shape a rank holds, and the
+    argument bytes a rank holds."""
+    from repro_torch.core.partition import distributed_query_specs
+    from repro_torch.shard import GraphMesh
+
+    n = math.prod(mesh_shape)
+    gmesh = GraphMesh(["meta"] * n)
+    rec = {"arch": "graph_engine", "mesh": mesh_name(mesh_shape),
+           "vcap": vcap, "bc_vcap": bc_vcap, "n_sources": n_sources,
+           "n_ranks": n}
+    for kind in GRAPH_KINDS:
+        v = bc_vcap if kind == "bc" else vcap
+        specs = distributed_query_specs(v, gmesh, n_sources=n_sources,
+                                        kind=kind)
+        rec[kind] = {
+            "vcap": v, "vp": specs[0].shape[0],
+            "args": [{"shape": list(a.shape), "layout": a.layout,
+                      "rank_shape": list(a.rank_shape),
+                      "dtype": str(a.dtype).split(".")[-1]} for a in specs],
+            "argument_bytes": sum(
+                math.prod(a.rank_shape) * a.dtype.itemsize for a in specs)}
+    return rec
+
+
+def run_graph_cell(mesh, state, *,
+                   src_chunk: Optional[int] = None) -> dict:
+    """Each query kind of the graph cell once on the live graph ``mesh``
+    (every rank calls it on a :class:`~repro_torch.shard.DistMesh`) over
+    ``state``, from one source a rank (vertices 0, 1, ...): the collective
+    bytes per op each kind counted, this process's rank's.
+    ``state.vcap`` stands for the cell's GRAPH_VCAP, recorded as cut in
+    ``reduced``; the kernels run on a CUDA state."""
+    from repro_torch.core.partition import build_query_inputs
+    from repro_torch.core.tiles import TILE
+    from repro_torch.shard.queries import counted_query_fn
+    from repro_torch.shard.tile_shard import as_graph_mesh
+
+    gmesh = as_graph_mesh(mesh)
+    rec = {"arch": "graph_engine", "n_ranks": gmesh.size,
+           "vcap": state.vcap, "n_sources": gmesh.size, "reduced": {}}
+    if state.vcap != GRAPH_VCAP:
+        rec["reduced"]["vcap"] = [GRAPH_VCAP, state.vcap]
+    args = build_query_inputs(state, gmesh, list(range(gmesh.size)))
+    rec["vp"] = next(b for b in args[0] if b is not None).shape[1]
+    for kind in GRAPH_KINDS:
+        _, rec[kind] = counted_query_fn(gmesh, kind, TILE, None,
+                                        src_chunk)(*args)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="one arch (default: all)")
     ap.add_argument("--shape", default=None, help="one shape (default: all)")
+    ap.add_argument("--graph", action="store_true",
+                    help="also write the graph engine's cells")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)
     archs = [args.arch] if args.arch else ARCHS
@@ -264,6 +346,15 @@ def main(argv=None):
             for s in shapes]
     with open(os.path.join(args.out, "layouts.json"), "w") as f:
         json.dump(recs, f, indent=1)
+    if args.graph:
+        for shape in ((16, 16), (2, 16, 16)):
+            rec = graph_layout_cell(shape)
+            with open(os.path.join(args.out, f"graph_engine."
+                                   f"{rec['mesh']}.json"), "w") as f:
+                json.dump(rec, f, indent=1)
+            print(f"[graph_engine {rec['mesh']}] " + ", ".join(
+                f"{k} vp {rec[k]['vp']} {rec[k]['argument_bytes'] / 2**30:.3f}"
+                " GiB a rank" for k in GRAPH_KINDS), flush=True)
     for r in recs:
         if not r["skipped"]:
             print(f"[{r['arch']} {r['shape']} {r['mesh']}] "

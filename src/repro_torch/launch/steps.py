@@ -14,11 +14,16 @@ make every gradient block that of the global loss, and AdamW updates the
 blocks (``models.sharding_ctx``).  The reported loss is the rank-ordered
 sum of the shares, the same bits on every process.
 
-``build_prefill_step`` / ``build_decode_step`` with ``mesh=`` serve the
-transformer family in the reference's layout (the dry run's prefill and
-decode cells): parameters in blocks, the KV cache's batch over ``data``
-and its sequence over ``model`` (``local_cache``), the batch rows over
-the data axes.
+``build_prefill_step`` / ``build_decode_step`` with ``mesh=`` serve
+every family in the reference's layout (the dry run's prefill and decode
+cells): parameters in blocks, the cache's batch over ``data``
+(``local_cache``) and, over ``model``, a K/V cache's sequence (the
+transformer's, the hybrid's shared block's, the encoder-decoder's self-
+and cross-attention's) and an SSM state's channels (``conv``) and heads
+(``ssd``), the batch rows over the data axes.  The ``model`` axis splits
+only the cache: each process computes every head of its rows on the
+gathered parameters, gathers a layer's SSM state where it runs and keeps
+its own block of the new one.
 """
 from __future__ import annotations
 
@@ -79,7 +84,10 @@ def local_cache(model: Model, mesh, batch_size: int, max_len: int,
     """This process's block of an empty cache of ``batch_size`` rows and
     ``max_len`` positions on ``mesh``'s device (a transformer's K/V:
     ``[L, batch_size / data, KV, max_len / model, D]``, the whole sequence
-    where ``model`` does not divide ``max_len``)."""
+    where ``model`` does not divide ``max_len``; an SSM's ``conv`` [L,
+    batch_size / data, K-1, C / model] and ``ssd`` [L, batch_size / data,
+    H / model, Pd, N]); the fill ``idx`` and an absent hybrid ``tail``
+    (``None``) as they are."""
     like = model.init_cache(batch_size, max_len, dtype=dtype, device="meta")
     sh = cache_shardings(model, mesh, like)
     return LocalCache(tree_map(
@@ -152,19 +160,10 @@ def gather_state(tree, shardings):
     return tree_map(lambda t, sh: sh.gather(t), tree, shardings)
 
 
-# The families whose serving runs on a mesh: the transformer's (the SSM,
-# hybrid and encoder-decoder caches are the next slice, ROADMAP.md).
-MESH_SERVING_FAMILIES = ("dense", "moe", "vlm")
-
-
 def _serving(model: Model, mesh, fn, keys):
     """``fn(params, tokens, cache, **kw)`` as a step ``(params, cache,
     batch)``, under ``torch.no_grad``; with ``mesh``, on this process's
     blocks (module docstring of ``build_prefill_step``)."""
-    if mesh is not None and model.cfg.family not in MESH_SERVING_FAMILIES:
-        raise NotImplementedError(
-            f"serving the {model.cfg.family} family on a mesh: its cache's "
-            "layout is the next slice (ROADMAP.md, queue 1)")
     p_sh = None if mesh is None else mesh_param_shardings(model, mesh)
 
     @torch.no_grad()
@@ -176,7 +175,7 @@ def _serving(model: Model, mesh, fn, keys):
             raise TypeError("a mesh step serves from local_cache()'s block")
         with sharding_context(mesh, full_batch=False, params=p_sh,
                               batch=batch.shardings["tokens"].axes,
-                              cache=cache.shardings["k"]):
+                              cache=model.cache_roles(cache.shardings)):
             logits, new = fn(params, batch["tokens"], cache, **kw)
         return logits, LocalCache(new, cache.shardings)
 
@@ -186,10 +185,11 @@ def _serving(model: Model, mesh, fn, keys):
 def build_prefill_step(model: Model, mesh=None):
     """``prefill_step(params, cache, batch)`` -> ``(last-token logits,
     cache)``.  With ``mesh`` (a ``("data", "model")`` mesh of processes;
-    the transformer family), the reference's serving layout: ``params``
+    every family), the reference's serving layout: ``params``
     this process's blocks (``local_state`` with ``mesh_param_shardings``),
-    ``cache`` its block (``local_cache``: batch over data, sequence over
-    model) and ``batch`` its rows (``shard_batch(mesh=,
+    ``cache`` its block (``local_cache``: batch over data, a K/V cache's
+    sequence and an SSM state's channels and heads over model) and
+    ``batch`` its rows (``shard_batch(mesh=,
     full_batch=False)``); the logits are its batch rows, the same bits on
     every ``model`` rank of a data row."""
     return _serving(model, mesh, model.prefill, ("positions", "frames"))

@@ -13,7 +13,12 @@ With ``attn_impl="flash"`` every prefill attention goes through the flash
 kernel: the encoder's self-attention and the decoder's cross-attention non
 causally (the whole encoder K/V), the decoder's self-attention causally on
 the filled cache prefix.  Caches are written in place, apart from the cross
-cache, which ``prefill`` rebuilds from the frames it is given.  ``loss_fn``
+cache, which ``prefill`` rebuilds from the frames it is given.  On a mesh
+of processes both caches are this process's blocks (their sequence over
+``model``) and each layer's parameters are gathered where it runs: a
+prefill with frames attends to the whole cross K/V it has just computed
+and keeps its block; a decode step, or a prefill without frames, merges
+the blocks' partial softmaxes (``layers.attention``).  ``loss_fn``
 is the reference's next-token cross-entropy of the decoder over
 ``batch["frames"]``; the encoder's layers, and the decoder's without a
 cache, are rematerialised in the backward when ``cfg.remat``.
@@ -28,7 +33,7 @@ from repro_torch.core.graph_state import resolve_device
 
 from . import layers as L
 from .config import ModelConfig
-from .sharding_ctx import P, stacked
+from .sharding_ctx import P, gathered, own_block, stacked
 
 
 def _norms(cfg: ModelConfig, dev, names) -> dict:
@@ -75,6 +80,11 @@ def cache_specs(cfg: ModelConfig) -> dict:
             "cross": {"k": kv, "v": kv}}
 
 
+def cache_roles(shardings: dict) -> dict:
+    """The decoder's self-attention K/V (``"kv"``) and its cross K/V."""
+    return {"kv": shardings["self"]["k"], "cross": shardings["cross"]["k"]}
+
+
 def encode(params: dict, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: [B, encoder_seq, d] (the stubbed frontend's output)."""
@@ -106,12 +116,15 @@ def _dec_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig, sc, cc,
 
 def decode(params: dict, tokens: torch.Tensor,
            enc_out: Optional[torch.Tensor], cfg: ModelConfig,
-           caches: Optional[dict] = None):
+           caches: Optional[dict] = None, cross: Optional[dict] = None):
     """caches: None (cross-attention over ``enc_out``) or dict(self={k, v}
-    [L, ...] and idx, cross={k, v} [L, ...]).  Returns ``(hidden [B,S,d],
-    caches)``; with caches, the self-attention's K/V rows are written into
-    them in place and ``idx`` advances by S."""
+    [L, ...] and idx, cross={k, v} [L, ...]); ``cross``: the whole cross
+    K/V to attend to instead of the cache's (a prefill's, on a mesh where
+    the cache keeps a block of it).  Returns ``(hidden [B,S,d], caches)``;
+    with caches, the self-attention's K/V rows are written into them in
+    place and ``idx`` advances by S."""
     h = L.embed(params["embed"], tokens)
+    src = caches["cross"] if cross is None and caches is not None else cross
     for i, lp in enumerate(params["decoder"]):
         if caches is None:
             h = L.remat(cfg, _dec_layer, lp, h, cfg, None, None, enc_out,
@@ -119,8 +132,8 @@ def decode(params: dict, tokens: torch.Tensor,
             continue
         sc = {"k": caches["self"]["k"][i], "v": caches["self"]["v"][i],
               "idx": caches["self"]["idx"]}
-        cc = {"k": caches["cross"]["k"][i], "v": caches["cross"]["v"][i]}
-        h = _dec_layer(lp, h, cfg, sc, cc, "cached")
+        cc = {"k": src["k"][i], "v": src["v"][i], "whole": cross is not None}
+        h = _dec_layer(gathered(lp, "decoder", i), h, cfg, sc, cc, "cached")
     if caches is not None:
         sc = caches["self"]
         caches = {**caches, "self": {**sc, "idx": sc["idx"] + h.shape[1]}}
@@ -139,9 +152,10 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def build_cross_cache(params: dict, enc_out: torch.Tensor,
                       cfg: ModelConfig) -> dict:
     """Every decoder layer's cross-attention K/V, stacked: [L, B, KV, Se,
-    D] each."""
-    kvs = [L.init_cross_kv(lp["cross"], cfg, enc_out)
-           for lp in params["decoder"]]
+    D] each (on a mesh, from the gathered projections)."""
+    kvs = [L.init_cross_kv(gathered(lp["cross"], "decoder", i, "cross",
+                                    keep=("wq", "wo")), cfg, enc_out)
+           for i, lp in enumerate(params["decoder"])]
     return {"k": torch.stack([kv["k"] for kv in kvs]),
             "v": torch.stack([kv["v"] for kv in kvs])}
 
@@ -165,12 +179,15 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             cache: dict, frames: Optional[torch.Tensor] = None,
             positions=None):
     """Prompt pass.  With ``frames`` the cross cache is rebuilt from the
-    encoder's output; without, the given cross cache is used as it is.
+    encoder's output (on a mesh, this process's block of it); without,
+    the given cross cache is used as it is.
     Returns (last-token logits [B, 1, V] in float32, cache)."""
+    cross = None
     if frames is not None:
-        enc_out = encode(params, frames, cfg)
-        cache = {**cache, "cross": build_cross_cache(params, enc_out, cfg)}
-    h, cache = decode(params, tokens, None, cfg, caches=cache)
+        cross = build_cross_cache(params, encode(params, frames, cfg), cfg)
+        cache = {**cache, "cross": {k: own_block(t, "cross").contiguous()
+                                    for k, t in cross.items()}}
+    h, cache = decode(params, tokens, None, cfg, caches=cache, cross=cross)
     return L.unembed_logits(params["lm_head"], h[:, -1:, :]), cache
 
 

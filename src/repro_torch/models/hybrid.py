@@ -11,7 +11,11 @@ attention and LoRA adapters per invocation).
 
 Each invocation keeps its own KV cache (``attn.k/v [ns, B, KV, max_len,
 D]``) and one ``idx`` for all of them: the invocations advance together, as
-the transformer's layers do.  Caches are written in place.  ``loss_fn`` is
+the transformer's layers do.  Caches are written in place.  On a mesh of
+processes the caches are this process's blocks (the K/V's sequence and
+the SSM state's channels and heads over ``model``), and each layer's
+parameters, and the shared block's once a pass, are gathered where they
+run.  ``loss_fn`` is
 the reference's next-token cross-entropy; without a cache, ``forward``
 rematerialises each super-block (its Mamba2 layers and the shared block's
 invocation) in the backward when ``cfg.remat``, as the reference does.
@@ -77,6 +81,13 @@ def cache_specs(cfg: ModelConfig) -> dict:
             "tail": S.ssm_cache_specs(cfg) if rem else None}
 
 
+def cache_roles(shardings: dict) -> dict:
+    """The shared block's K/V (``"kv"``) and one Mamba2 layer's state (the
+    tail's is laid out alike)."""
+    return {"kv": shardings["attn"]["k"],
+            **S.cache_roles(shardings["ssm"], lead=2)}
+
+
 def _shared_block(sp: dict, h: torch.Tensor, cfg: ModelConfig,
                   cache: Optional[dict], positions) -> torch.Tensor:
     a, _ = L.attention(sp["attn"], L.rms_norm(h, sp["ln1"], cfg.norm_eps),
@@ -104,22 +115,23 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     written into them in place and ``idx`` advances by S."""
     h = L.embed(params["embed"], tokens)
     sp = params["shared"]
-    ssm_c, tail_c = (None, None) if caches is None else (caches["ssm"],
-                                                          caches["tail"])
+    if caches is not None:
+        ssm_c, tail_c = caches["ssm"], caches["tail"]
+        sp = gathered(sp, "shared")
     for j, block in enumerate(params["blocks"]):
         if caches is None:
             h = L.remat(cfg, _super_block, block, sp, h, cfg, positions, j)
             continue
         for i, lp in enumerate(block):
-            h = S.residual_block(lp, h, cfg, S.layer_cache(ssm_c, j, i))
+            h = S.residual_block(gathered(lp, "blocks", j, i), h, cfg,
+                                 S.layer_cache(ssm_c, j, i))
         attn_c = {"k": caches["attn"]["k"][j], "v": caches["attn"]["v"][j],
                   "idx": caches["attn"]["idx"]}
         h = _shared_block(sp, h, cfg, attn_c, positions)
     for i, lp in enumerate(params.get("tail", ())):
-        if caches is None:
-            h = S.residual_block(gathered(lp, "tail", i), h, cfg)
-        else:
-            h = S.residual_block(lp, h, cfg, S.layer_cache(tail_c, i))
+        lp = gathered(lp, "tail", i)
+        h = S.residual_block(lp, h, cfg, None if caches is None
+                             else S.layer_cache(tail_c, i))
     if caches is not None:
         attn = caches["attn"]
         caches = {**caches, "attn": {**attn,

@@ -283,15 +283,22 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     process of a data row, are written only where they fall in the block.
     A prefill on the flash path hands the kernel the fresh K/V at ``idx``
     0 and the filled prefix gathered over the blocks after it; everything
-    else splits the keys (``_sdpa_seq_split``).
+    else splits the keys (``_sdpa_seq_split``).  A ``"cached"`` cross
+    cache is such a block too (role ``"cross"``), its keys split the same
+    way, not causally, unless it is marked ``whole`` (a prefill's freshly
+    computed cross K/V, before the cache keeps its block).
     """
     b, sq, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, sq, h, hd)
     cross_cached = isinstance(kv_x, str) and kv_x == "cached"
+    r0, seq_axes = 0, ()
     if cross_cached:
         k, v = cache["k"], cache["v"]
         new_cache = cache
+        if not cache.get("whole", False):
+            ck, cv = k, v
+            r0, seq_axes = sharding_ctx.cache_block(k.shape[2], "cross")
     else:
         k, v = _project_kv(p, cfg, x if kv_x is None else kv_x)
         new_cache = None
@@ -310,7 +317,6 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
 
-    seq_axes = ()
     if cache is not None and is_self:
         ck, cv = cache["k"], cache["v"]
         r0, seq_axes = sharding_ctx.cache_block(ck.shape[2])
@@ -325,7 +331,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     flash = cfg.attn_impl == "flash" and sq > 1 and cfg.logit_softcap == 0
     if seq_axes:
-        if flash:
+        if flash and is_self:
             # The whole prompt's fresh K/V at idx 0; else the filled
             # prefix, gathered over the sequence's axes.
             if q_offset:
@@ -334,7 +340,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             out = kops.flash_attention(q, k, v, causal=causal, window=window)
         else:
             out = _sdpa_seq_split(q, ck, cv, cfg, q_offset=q_offset, r0=r0,
-                                  window=window, axes=seq_axes)
+                                  window=window, axes=seq_axes,
+                                  causal=causal and is_self)
         out = out.transpose(1, 2).reshape(b, sq, h * hd)
         return out @ p["wo"], new_cache
 
@@ -383,14 +390,21 @@ def _cache_prefix(c: torch.Tensor, n: int, axes: tuple) -> torch.Tensor:
 
 
 def _sdpa_seq_split(q, ck, cv, cfg: ModelConfig, *, q_offset: int, r0: int,
-                    window: Optional[int], axes: tuple) -> torch.Tensor:
-    """``sdpa_chunked`` (causal) against a cache whose sequence is split in
-    blocks over ``axes``: each process scores its queries against its own
-    block of keys (global positions ``r0``, ``r0 + 1``, ...), keeping the
-    unnormalised sum, the row maximum and the weights' sum, and the
-    blocks' partial softmaxes merge over ``axes`` in rank order
-    (``sharding_ctx.softmax_combine``).  Returns [B, H, Sq, D] in the
-    cache's dtype."""
+                    window: Optional[int], axes: tuple,
+                    causal: bool = True) -> torch.Tensor:
+    """``sdpa_chunked`` (causal, or not: a cross cache) against a cache
+    whose sequence is split in blocks over ``axes``, rounding where it
+    rounds: each process scores its queries against its own block of keys
+    (global positions ``r0``, ``r0 + 1``, ...); the row maxima, then the
+    sums of the weights, are reduced over ``axes`` first, so each block's
+    probabilities are the whole softmax's, rounded to the values' dtype as
+    ``_attend`` rounds them; the blocks' products are summed in float32
+    over ``axes`` in rank order and rounded once.  A block whose keys no
+    row of a chunk sees adds zeros; a row that sees no key anywhere gives
+    0 (the one-process path's zeroed NaN).  Every process of the line gets
+    the same bits.  Three passes over the chunks (maxima, sums, products)
+    each score a chunk again, so one chunk's scores are held at a time.
+    Returns [B, H, Sq, D] in the cache's dtype."""
     g = cfg.num_heads // cfg.num_kv_heads
     sq, sl = q.shape[2], ck.shape[2]
     k, v = ck, cv
@@ -398,41 +412,46 @@ def _sdpa_seq_split(q, ck, cv, cfg: ModelConfig, *, q_offset: int, r0: int,
         k = k.repeat_interleave(g, dim=1)
         v = v.repeat_interleave(g, dim=1)
     kt = k.float().transpose(-1, -2)
-    parts = []
+    spans = []      # (first row, rows, the visible keys lo:hi) per chunk
     for s0 in range(0, sq, cfg.attn_chunk):
-        qc = q[:, :, s0:s0 + cfg.attn_chunk]
-        q0 = q_offset + s0
+        n, q0 = min(cfg.attn_chunk, sq - s0), q_offset + s0
         # the block's keys some row of the chunk can see, local positions
-        hi = min(sl, q0 + qc.shape[2] - r0)
+        hi = min(sl, q0 + n - r0) if causal else sl
         lo = min(max(hi, 0), 0 if window is None
                  else max(0, q0 - window + 1 - r0))
-        if hi <= lo:                     # none: an empty partial softmax
-            shape = qc.shape[:3]
-            parts.append((q.new_zeros(shape + (v.shape[3],),
-                                      dtype=torch.float32),
-                          q.new_full(shape + (1,), -math.inf,
-                                     dtype=torch.float32),
-                          q.new_zeros(shape + (1,), dtype=torch.float32)))
-            continue
-        parts.append(_attend_partial(qc, kt[..., lo:hi], v[:, :, lo:hi], q0,
-                                     r0 + lo, window, cfg.logit_softcap))
-    o, m, l = (torch.cat(x, dim=2) for x in zip(*parts))
-    return sharding_ctx.softmax_combine(o, m, l, axes).to(cv.dtype)
+        spans.append((s0, n, lo, hi))
+    held = {}
 
+    def scores(s0, n, lo, hi):
+        # a single chunk (a decode step) keeps its scores for the passes
+        s = held.get(s0)
+        if s is None:
+            s = _scores(q[:, :, s0:s0 + n], kt[..., lo:hi], q_offset + s0,
+                        r0 + lo, causal, window, cfg.logit_softcap)
+            if len(spans) == 1:
+                held[s0] = s
+        return s
 
-def _attend_partial(qc, kt, v, q0: int, k0: int, window: Optional[int],
-                    softcap: float):
-    """``_attend``'s causal scores of one chunk against one block of keys,
-    as a partial softmax: ``(sum_j exp(s_j - m) v_j, m, sum_j exp(s_j -
-    m))`` in float32, ``m`` the row maximum (``-inf`` and zeros for a row
-    that sees none of the block's keys).  The weights are rounded to
-    ``v``'s dtype for the product, as ``_attend`` rounds its
-    probabilities."""
-    s = _scores(qc, kt, q0, k0, True, window, softcap)
-    m = s.amax(dim=-1, keepdim=True)
-    w = torch.exp(s - torch.where(m == -math.inf, 0.0, m))
-    o = w.to(v.dtype).float() @ v.float()
-    return o, m, w.sum(dim=-1, keepdim=True)
+    rows = q.shape[:2]
+    m = sharding_ctx.pmax_over(torch.cat([
+        q.new_full(rows + (n, 1), -math.inf, dtype=torch.float32)
+        if hi <= lo else scores(s0, n, lo, hi).amax(dim=-1, keepdim=True)
+        for s0, n, lo, hi in spans], dim=2), axes)
+    m = torch.where(m == -math.inf, 0.0, m)
+
+    def weights(s0, n, lo, hi):
+        return torch.exp(scores(s0, n, lo, hi) - m[:, :, s0:s0 + n])
+
+    total = sharding_ctx.psum_over(torch.cat([
+        q.new_zeros(rows + (n, 1), dtype=torch.float32) if hi <= lo
+        else weights(s0, n, lo, hi).sum(dim=-1, keepdim=True)
+        for s0, n, lo, hi in spans], dim=2), axes)
+    total = torch.where(total > 0, total, 1.0)
+    out = [q.new_zeros(rows + (n, v.shape[3]), dtype=torch.float32)
+           if hi <= lo else (weights(s0, n, lo, hi)
+                             / total[:, :, s0:s0 + n]).to(v.dtype).float()
+           @ v[:, :, lo:hi].float() for s0, n, lo, hi in spans]
+    return sharding_ctx.psum_over(torch.cat(out, dim=2), axes).to(cv.dtype)
 
 
 def _project_kv(p: dict, cfg: ModelConfig, src: torch.Tensor):

@@ -32,6 +32,7 @@ class Model:
     init_cache: Callable     # (batch, max_len, dtype=, device=) -> cache
     specs: Callable          # () -> parameter spec tree (per-layer lists)
     cache_specs: Callable    # () -> cache spec tree
+    cache_roles: Callable    # (cache shardings) -> {role: a layer's sharding}
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -57,6 +58,7 @@ def get_model(cfg: ModelConfig) -> Model:
             mod.init_cache(cfg, batch, max_len, dtype, device),
         specs=lambda: mod.specs(cfg),
         cache_specs=lambda: mod.cache_specs(cfg),
+        cache_roles=mod.cache_roles,
     )
 
 

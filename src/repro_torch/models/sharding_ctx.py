@@ -25,14 +25,19 @@ global loss; a leaf replicated over an axis then sums its gradient over it
 (``launch.steps``).
 
 In serving (``full_batch=False``) the batch rows are split over the data
-axes only and the KV cache's sequence over ``model`` (the sanitized
-``cache_specs``, installed with ``cache=``): :func:`cache_block` says which
-rows of the sequence this process holds, and :func:`softmax_combine`
-merges the partial softmaxes of the blocks.
+axes only and the cache in the reference's layout (the sanitized
+``cache_specs``, installed with ``cache=`` by role): a K/V cache's
+sequence over ``model`` -- :func:`cache_block` says which rows of the
+sequence this process holds, and :func:`pmax_over` / :func:`psum_over`
+reduce the blocks' softmax maxima, sums and products -- and an SSM
+state's channels or heads over ``model`` -- :func:`whole_state` gathers
+a layer's state where it is used and :func:`own_block` keeps this
+process's block of the new one.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Optional
 
@@ -56,8 +61,13 @@ def stacked(spec: "P", lead: int = 1) -> "P":
     return P(*((None,) * lead + tuple(spec)))
 
 
+def unstacked(sh, lead: int = 1):
+    """One layer's sharding of a leaf stacked on ``lead`` leading axes."""
+    return dataclasses.replace(sh, spec=P(*tuple(sh.spec)[lead:]))
+
+
 _CTX: dict = {"active": False, "dp": (), "tp": (), "sizes": {},
-              "mesh": None, "params": None, "batch": (), "cache": None}
+              "mesh": None, "params": None, "batch": (), "cache": {}}
 
 # The sequence dimension of a stacked K/V cache [L, B, KV, S, D].
 CACHE_SEQ_DIM = 3
@@ -72,8 +82,11 @@ def sharding_context(mesh, full_batch: bool = False, *, params=None,
     :class:`~repro_torch.launch.mesh.Sharding` of the parameters each
     process holds blocks of (``gathered`` reads it); ``batch``: the axes
     the local batch rows are split over; ``cache``: the
-    :class:`~repro_torch.launch.mesh.Sharding` of the K/V cache each
-    process holds a block of (``cache_block`` reads it)."""
+    :class:`~repro_torch.launch.mesh.Sharding` of each role of the cache
+    each process holds a block of -- ``"kv"`` a self-attention K/V
+    cache [L, B, KV, S, D], ``"cross"`` a cross-attention one, ``"conv"``
+    and ``"ssd"`` one layer's SSM state [B, ...] -- (``cache_block``,
+    ``whole_state`` and ``own_block`` read it; a role left out is whole)."""
     names = tuple(mesh.axis_names)
     old = dict(_CTX)
     dp_order = ("data", "model", "pod") if full_batch else ("pod", "data")
@@ -85,7 +98,7 @@ def sharding_context(mesh, full_batch: bool = False, *, params=None,
         mesh=mesh,
         params=params,
         batch=tuple(batch),
-        cache=cache,
+        cache=dict(cache or {}),
     )
     try:
         yield
@@ -179,35 +192,67 @@ def block_of(sh, dim: int, rows: int) -> tuple:
     return block * rows, axes
 
 
-def cache_block(rows: int) -> tuple:
-    """``block_of`` the K/V cache's sequence (the installed cache
-    sharding), ``rows`` rows here.  ``(0, ())`` where the whole sequence is
-    local: outside a mesh, or where the sanitized spec dropped the split (a
-    length that ``model`` does not divide)."""
-    return block_of(_CTX["cache"] if live_mesh() is not None else None,
-                    CACHE_SEQ_DIM, rows)
+def _cache_sharding(role: str):
+    return _CTX["cache"].get(role) if live_mesh() is not None else None
 
 
-def softmax_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
-                    axes: tuple) -> torch.Tensor:
-    """The softmax-weighted sum over every block of keys, from each
-    process's partial one over its own block: ``o`` the unnormalised sum
-    ``sum_j exp(s_j - m) v_j``, ``m`` [..., 1] the block's row maximum
-    (``-inf`` where the block holds no visible key) and ``l`` [..., 1] the
-    sum of its weights, all float32.  Over each axis of ``axes``, in rank
-    order: ``M = pmax(m)``, ``o = psum(o exp(m - M))``, ``l = psum(l exp(m -
-    M))``; then ``o / l``.  A block with no visible key contributes exact
-    zeros, and a row that sees no key anywhere gives 0 (the one-process
-    path's zeroed NaN).  Every process of the line gets the same bits."""
-    mesh = live_mesh()
-    d = o.shape[-1]
+def cache_block(rows: int, role: str = "kv") -> tuple:
+    """``block_of`` the sequence of the K/V cache of ``role`` (``"kv"``
+    or ``"cross"``; the installed cache sharding), ``rows`` rows here.
+    ``(0, ())`` where the whole sequence is local: outside a mesh, or
+    where the sanitized spec dropped the split (a length that ``model``
+    does not divide)."""
+    return block_of(_cache_sharding(role), CACHE_SEQ_DIM, rows)
+
+
+def _split_dims(sh):
+    """``(dim, axes)`` of each dimension ``sh`` splits but the batch's (the
+    local rows: its axes are all batch axes)."""
+    out = []
+    for dim, entry in enumerate(() if sh is None else sh.spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        if axes and not set(axes) <= set(_CTX["batch"]):
+            out.append((dim, axes))
+    return out
+
+
+def whole_state(x: torch.Tensor, role: str) -> torch.Tensor:
+    """This process's block ``x`` of a cache leaf of ``role`` gathered
+    over the axes its sanitized spec splits, in rank order, but the batch
+    rows (this process's own): the whole state of its rows.  ``x`` itself
+    outside a mesh, or where the spec splits nothing (a dimension that
+    ``model`` does not divide stays whole)."""
+    for dim, axes in _split_dims(_cache_sharding(role)):
+        for a in reversed(axes):
+            x = all_gather(x, a, dim)
+    return x.contiguous()
+
+
+def own_block(x: torch.Tensor, role: str) -> torch.Tensor:
+    """This process's block of the whole state ``x`` of ``role`` (a view),
+    the layout ``whole_state`` gathered it from."""
+    sh = _cache_sharding(role)
+    for dim, axes in _split_dims(sh):
+        rows = x.shape[dim] // math.prod(live_mesh().sizes[a] for a in axes)
+        x = x.narrow(dim, block_of(sh, dim, rows)[0], rows)
+    return x
+
+
+def pmax_over(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the processes of ``axes`` (no
+    gradient)."""
     for a in axes:
-        g = mesh.group(a)
-        top = g.pmax(m)
-        w = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
-        ol = g.psum(torch.cat([o * w, l * w], dim=-1))
-        o, l, m = ol[..., :d], ol[..., d:], top
-    return torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+        x = live_mesh().group(a).pmax(x)
+    return x
+
+
+def psum_over(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """The sum of ``x`` over the processes of ``axes`` in rank order (no
+    gradient): every process gets the same bits."""
+    for a in axes:
+        x = live_mesh().group(a).psum(x)
+    return x
 
 
 def batch_share(x):
@@ -300,14 +345,16 @@ def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
 
 def gather_leaf(x: torch.Tensor, spec) -> torch.Tensor:
     """The whole parameter from this process's block (``spec``: its
-    sanitized :class:`~repro_torch.launch.mesh.P`); the backward
-    reduce-scatters the gradient back to the block."""
+    sanitized :class:`~repro_torch.launch.mesh.P`), laid out as the whole
+    parameter is (contiguous), so its products take the one-process
+    path's kernels; the backward reduce-scatters the gradient back to the
+    block."""
     for dim, entry in enumerate(spec):
         names = () if entry is None else (
             entry if isinstance(entry, tuple) else (entry,))
         for name in reversed(names):
             x = all_gather(x, name, dim)
-    return x
+    return x.contiguous()
 
 
 def _tree_gather(tree, shardings):

@@ -17,9 +17,15 @@ cache's dtype.  Mixed operands of a product are promoted first, as JAX's
 einsum promotes them (``_ein``).
 
 The cache, ``conv`` [L, B, K-1, C] and ``ssd`` [L, B, H, Pd, N], is written
-in place, as the transformer's KV cache is.  ``loss_fn`` is the reference's
-next-token cross-entropy; without a cache, ``forward`` rematerialises each
-layer in the backward when ``cfg.remat``.
+in place, as the transformer's KV cache is.  On a mesh of processes a
+process holds its block of it (channels and heads over ``model``): each
+layer gathers its parameters and its state where it runs, and keeps its
+own block of the new state (``sharding_ctx.whole_state`` /
+``own_block``).  The two blocks need not cover the same heads (the
+``conv`` block is contiguous over C = d_inner + 2N), so the state is
+gathered whole rather than computed head-parallel.  ``loss_fn`` is the
+reference's next-token cross-entropy; without a cache, ``forward``
+rematerialises each layer in the backward when ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from repro_torch.core.graph_state import resolve_device
 from . import layers as L
 from .config import ModelConfig
 from .layers import FSDP, TP
-from .sharding_ctx import P, stacked
+from .sharding_ctx import (P, gathered, own_block, stacked, unstacked,
+                           whole_state)
 
 
 def _ein(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -197,12 +204,16 @@ def residual_block(lp: dict, h: torch.Tensor, cfg: ModelConfig,
                    cache: Optional[dict] = None) -> torch.Tensor:
     """``h + mamba_block(rms_norm(h))`` with ``lp = {mixer, ln}``; with a
     cache (views of one layer's conv and ssd state) the new state is
-    written into it in place."""
+    written into it in place.  On a mesh the cache is this process's
+    block: the block runs on the whole state of its rows and writes its
+    own block back."""
+    whole = None if cache is None else {
+        k: whole_state(cache[k], k) for k in ("conv", "ssd")}
     o, nc = mamba_block(lp["mixer"], L.rms_norm(h, lp["ln"], cfg.norm_eps),
-                        cfg, cache)
+                        cfg, whole)
     if cache is not None:
-        cache["conv"].copy_(nc["conv"])
-        cache["ssd"].copy_(nc["ssd"])
+        for k in ("conv", "ssd"):
+            cache[k].copy_(own_block(nc[k], k))
     return h + o
 
 
@@ -270,16 +281,24 @@ def cache_specs(cfg: ModelConfig) -> dict:
     return ssm_cache_specs(cfg)
 
 
+def cache_roles(shardings: dict, lead: int = 1) -> dict:
+    """The cache's shardings by the role the cache branch reads them under
+    (``sharding_context(cache=)``): one layer's ``conv`` and ``ssd``."""
+    return {k: unstacked(shardings[k], lead) for k in ("conv", "ssd")}
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[dict] = None):
     """Returns ``(hidden [B,S,d], caches)``; with ``caches`` each layer's
-    state is written into them in place."""
+    state is written into them in place.  On a mesh each layer's
+    parameters are gathered where it runs."""
     h = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
         if caches is None:
             h = L.remat(cfg, residual_block, lp, h, cfg, path=("layers", i))
         else:
-            h = residual_block(lp, h, cfg, layer_cache(caches, i))
+            h = residual_block(gathered(lp, "layers", i), h, cfg,
+                               layer_cache(caches, i))
     return L.rms_norm(h, params["final_norm"], cfg.norm_eps), caches
 
 

@@ -70,6 +70,12 @@ def cache_specs(cfg: ModelConfig) -> dict:
             "idx": stacked(P())}
 
 
+def cache_roles(shardings: dict) -> dict:
+    """The cache's shardings by the role attention reads them under
+    (``sharding_context(cache=)``): the K/V (``"kv"``)."""
+    return {"kv": shardings["k"]}
+
+
 def _layer_apply(lp, h, cfg, window, cache, positions, path=None):
     """One block; the attention writes its K/V rows into ``cache`` in
     place.  Returns (h, the MoE load-balance loss, or 0.0 for a dense

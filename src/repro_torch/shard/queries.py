@@ -527,8 +527,21 @@ def query_fn(mesh, kind: str, tile: int, use_kernel=None,
     (split over the ranks).  ``use_kernel`` as in
     ``repro_torch.core.semiring`` (None: the kernels on a CUDA tensor).
     """
+    fn = counted_query_fn(mesh, kind, tile, use_kernel, src_chunk)
+    return lambda *args: fn(*args)[0]
+
+
+def counted_query_fn(mesh, kind: str, tile: int, use_kernel=None,
+                     src_chunk: int | None = None):
+    """``query_fn``'s program returning ``(outputs, {op: bytes})``: the
+    collective bytes its group counted (one rank's share; this process's
+    on a ``DistMesh``)."""
     body, layouts = _program(mesh, kind, tile, use_kernel, src_chunk)
-    return lambda *args: _launch(mesh, body, layouts, args)[0]
+
+    def fn(*args):
+        outs, group = _launch(mesh, body, layouts, args)
+        return outs, dict(group.bytes)
+    return fn
 
 
 def _srcs_array(state: GraphState, srcs, n_shards: int = 1,

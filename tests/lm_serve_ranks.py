@@ -174,3 +174,141 @@ def block_of(whole: np.ndarray, coords: dict, spec) -> np.ndarray:
         m = coords["model"]
         out = out[:, :, :, m * n:(m + 1) * n]
     return out
+
+
+def flat(tree, prefix="") -> dict:
+    """A cache (or its shardings) as ``{path: leaf}``: tensors as numpy
+    copies, :class:`~repro_torch.launch.mesh.Sharding` as their spec
+    tuples, ``idx`` as an int; an absent ``tail`` gives nothing."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.cpu().numpy().copy()}
+    if isinstance(tree, meshlib.Sharding):
+        return {prefix: tuple(tree.spec)}
+    return {prefix: tree}
+
+
+def _step_batch(step: dict, mesh=None, device="cpu"):
+    """A fed step's batch (tokens, Whisper's frames) on the mesh's rows or,
+    without a mesh, whole on ``device``."""
+    if mesh is None:
+        return {k: torch.from_numpy(v).to(device) for k, v in step.items()}
+    return shard_batch(step, mesh=mesh, full_batch=False)
+
+
+def _family_params(model, p0_np, device):
+    """The reference's parameters carried over, or (``p0_np`` None) the
+    port's own from a generator seeded 0 on ``device``."""
+    if p0_np is None:
+        return model.init(torch.Generator(device=device).manual_seed(0))
+    return params_from_jax(p0_np, device=device)
+
+
+def family_case(mesh, case, p0_np, feed):
+    """One serving run of the SSM, hybrid or encoder-decoder family on the
+    mesh from the reference's parameters (``_family_params``): ``feed``
+    the reference's steps (dicts of tokens and, on a Whisper prefill,
+    frames); a multi-token step is a prefill.  Returns this process's
+    logits of every step, its cache block and the cache's specs by path,
+    and the flash calls of every step."""
+    _mesh(mesh)
+    cfg = config(case["arch"], None, case["impl"])
+    model = get_model(cfg)
+    params = steps.local_state(_family_params(model, p0_np, mesh.device),
+                               steps.mesh_param_shardings(model, mesh))
+    cache = steps.local_cache(model, mesh, case["batch"], case["max_len"],
+                              dtype=torch.float32)
+    prefill = steps.build_prefill_step(model, mesh=mesh)
+    decode = steps.build_decode_step(model, mesh=mesh)
+    logits, flash = [], []
+    for step in feed:
+        fn = decode if step["tokens"].shape[1] == 1 else prefill
+        with flash_calls() as calls:
+            out, cache = fn(params, cache, _step_batch(step, mesh))
+        logits.append(out.cpu().numpy())
+        flash.append(calls)
+    return {"coords": mesh.coords, "logits": logits, "flash": flash,
+            "cache": flat(cache), "specs": flat(cache.shardings)}
+
+
+def family_one_process(case, p0_np, feed, device="cpu"):
+    """The same run through one process's steps on ``device``, in the
+    test's process: every step's logits and the whole cache by path."""
+    cfg = config(case["arch"], None, case["impl"])
+    model = get_model(cfg)
+    params = _family_params(model, p0_np, device)
+    cache = model.init_cache(case["batch"], case["max_len"],
+                             dtype=torch.float32, device=device)
+    prefill = steps.build_prefill_step(model)
+    decode = steps.build_decode_step(model)
+    logits = []
+    for step in feed:
+        fn = decode if step["tokens"].shape[1] == 1 else prefill
+        out, cache = fn(params, cache, _step_batch(step, device=device))
+        logits.append(out.cpu().numpy())
+    return logits, flat(cache)
+
+
+def family_feed(arch, batch, prompt, cont, tokens, seed=0):
+    """A fed run without the reference: a prompt (with Whisper's frames),
+    a continuation of ``cont`` and the given decode ``tokens`` [batch, n],
+    drawn from numpy seeded ``seed``."""
+    cfg = config(arch)
+    rng = np.random.default_rng(seed)
+    feed = [{"tokens": rng.integers(1, cfg.vocab_size, (batch, prompt))
+             .astype(np.int32)}]
+    if cfg.encoder_layers:
+        feed[0]["frames"] = rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cont:
+        feed.append({"tokens": rng.integers(1, cfg.vocab_size, (batch, cont))
+                     .astype(np.int32)})
+    return feed + [{"tokens": np.ascontiguousarray(tokens[:, i:i + 1])}
+                   for i in range(tokens.shape[1])]
+
+
+def family_cases(mesh, cases, feeds):
+    """``family_case`` of each case on the port's own seed-0 parameters."""
+    return [family_case(mesh, c, None, f) for c, f in zip(cases, feeds)]
+
+
+def families_all(mesh, cases, p0s, feeds, cells):
+    """Every family case and the dry run's live serving cells of the three
+    families, in one spawn."""
+    _mesh(mesh)
+    out = {"coords": mesh.coords,
+           "cases": [family_case(mesh, c, p0s[c["ref"]], feeds[c["ref"]])
+                     for c in cases], "dryrun": {}}
+    for arch, shape, seq in cells:
+        out["dryrun"][(arch, shape)] = dryrun.run_cell(
+            arch, shape, mesh, cfg=config(arch), seq=seq, out_dir=None)
+    return out
+
+
+def graph_cell(mesh, n_vertices, n_edges, src_chunk):
+    """The dry run's live graph cell on this process's rank of an R-MAT
+    graph of ``n_vertices`` (seed 0) on its device."""
+    from repro_torch.data import load_rmat_graph
+
+    state = load_rmat_graph(n_vertices, n_edges, seed=0, device=mesh.device)
+    return dryrun.run_graph_cell(mesh, state, src_chunk=src_chunk)
+
+
+def spec_block(whole: np.ndarray, coords: dict, spec) -> np.ndarray:
+    """A rank's block of a whole array under ``spec`` on the (2, 2)
+    mesh."""
+    sizes = dict(zip(("data", "model"), SHAPE))
+    out = whole
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = whole.shape[dim] // sizes[entry]
+        i = coords[entry]
+        out = np.take(out, range(i * n, (i + 1) * n), axis=dim)
+    return out

@@ -932,3 +932,44 @@ def test_cuda_sharded_train_step_matches_one_process(cuda_device, arch,
             e = e.float().cpu().numpy()
             np.testing.assert_allclose(g.numpy(), e, rtol=1e-4,
                                        atol=1e-4 * np.abs(e).max())
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_families_serving_matches_one_process(cuda_device):
+    """Four processes on the card over gloo, a (2, 2) (data, model) mesh,
+    serving reduced mamba2_780m and whisper_large_v3 (float32, flash
+    path; the SSM state split over ``model``, Whisper's self and cross
+    K/V split over the sequence): a prompt (Whisper's with frames), a
+    continuation and four decode steps against one process's
+    ``build_prefill_step`` / ``build_decode_step`` on the card on the same
+    seed-0 parameters, logits and each process's cache block to rtol =
+    atol = 1e-4; the model ranks of a data row bit-equal."""
+    import lm_serve_ranks as sr
+    import repro_torch.shard as ts
+
+    cases = [dict(arch=a, impl="flash", batch=4, max_len=32, ref=a)
+             for a in ("mamba2_780m", "whisper_large_v3")]
+    feeds = [sr.family_feed(c["arch"], 4, 12, 8,
+                            np.random.default_rng(3).integers(
+                                1, 200, (4, 4)).astype(np.int32))
+             for c in cases]
+    outs = ts.spawn(sr.family_cases, 4, device="cuda:0", transport="gloo",
+                    timeout=120, join_timeout=600, args=(cases, feeds))
+    for i, (case, feed) in enumerate(zip(cases, feeds)):
+        logits, cache = sr.family_one_process(case, None, feed,
+                                              device=cuda_device)
+        for o in outs:
+            got = o[i]
+            d = got["coords"]["data"]
+            twin = next(p[i] for p in outs if p[i]["coords"]["data"] == d
+                        and p[i] is not got)
+            for g, t, w in zip(got["logits"], twin["logits"], logits):
+                np.testing.assert_array_equal(g, t)
+                np.testing.assert_allclose(g, w[2 * d:2 * d + 2],
+                                           rtol=1e-4, atol=1e-4)
+            for path, spec in got["specs"].items():
+                if not path.endswith("/idx"):
+                    np.testing.assert_allclose(
+                        got["cache"][path],
+                        sr.spec_block(cache[path], got["coords"], spec),
+                        rtol=1e-4, atol=1e-4, err_msg=path)

@@ -29,6 +29,9 @@ held against the reference's to rtol = atol = 1e-5, over:
   * qwen3_32b with ``max_len = 33``, which ``model`` does not divide: the
     cache stays whole on every process, as the reference's sanitized spec
     leaves it.
+
+The SSM, hybrid and encoder-decoder families are held the same way in
+``tests/test_torch_lm_serve_shard_families.py``.
 """
 import pickle
 
@@ -36,7 +39,7 @@ import numpy as np
 import pytest
 
 import repro_torch.shard as ts
-from repro_torch.launch import dryrun, mesh as meshlib, steps
+from repro_torch.launch import dryrun, mesh as meshlib
 from repro_torch.models import get_model, param_shapes
 from repro_torch.optim.tree import tree_leaves
 
@@ -369,17 +372,3 @@ def test_dryrun_serving_bytes_match_layouts(cell, runs):
         k: d1[k] + (units - 1) * layer.get(k, 0) for k in d1}
     assert rec["reduced"] == {"batch": [128 if decode else 32, 2],
                               "seq": [32768, seq]}
-
-
-@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_12b",
-                                  "whisper_large_v3"])
-def test_other_families_serving_cells_raise(arch):
-    """Sharded serving of the SSM, hybrid and encoder-decoder families is
-    the next slice: their cells and mesh steps say so."""
-    for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            dryrun.run_cell(arch, shape, None, cfg=sr.config(arch), seq=32)
-    model = get_model(sr.config(arch))
-    for build in (steps.build_prefill_step, steps.build_decode_step):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            build(model, mesh=dryrun.mesh_layout((2, 2)))
