@@ -54,7 +54,12 @@ exit code:
                  cross-attention), its inputs laid out as the models hand
                  them over, and at phase 3i's three (LM2_FLASH: gemma3's
                  layers windowed at 1024 and global, llama4's 40/8 GQA; SDPA
-                 beside the windowed one with a boolean band mask);
+                 beside the windowed one with a boolean band mask), and at
+                 the mesh's prefill shapes of phases 3l and 3m (MESH_FLASH:
+                 one data row's two sequences; granite's whole prompt, its
+                 two halves, mistral's 32/8 GQA at head_dim 128, Zamba2's
+                 shared block, Whisper's encoder, decoder self- and
+                 cross-attention);
   3a. main    -- the port's GraphService on R-MAT(16384, 163840, seed 0):
                  a cold all-vertex bc_scores, 16 commits of 24 hot-set ops
                  each answered by BFS/SSSP/BC queries (one source in "cn"
@@ -164,8 +169,10 @@ exit code:
                  cuda:0 with transport="gloo" (every collective staged
                  through pinned host memory), each holding one band; the
                  processes load the kernels phase 1 built.  Each process
-                 runs gather mode on all COMMITS commits (bc_scores at 3g's
-                 versions) and ring mode on the first RING_COMMITS, without
+                 runs gather mode on the first GATHER_COMMITS commits
+                 (bc_scores at 3g's versions 0 and 8; cut from all COMMITS
+                 for the run's time) and ring mode on the first RING_COMMITS,
+                 without
                  bc_scores (ring mode moves about 1.3e10 B a BC query
                  through the host), and fails unless every reply
                  equals 3g's local GraphService's at its version (BC
@@ -183,7 +190,23 @@ exit code:
                  source a rank, vcap 16384 cut from 131072), whose
                  collective bytes per kind must be the same on every rank,
                  and prints them; with SHARDS cards it also runs
-                 transport="nccl", one card per rank, else it says so;
+                 transport="nccl", one card per rank, else it says so.
+                 After the gather stream the same processes serve 3g's
+                 front-end schedule through AsyncGraphService on the same
+                 service (dist_front_end): rank 0 admits the three
+                 clients' 27 requests and the two commits and sequences
+                 them, the other processes follow its commands (framed
+                 broadcasts, counted as control bytes); every reply must
+                 be validated and equal the single-source query at its
+                 version on rank 0's card (BC delta to 1e-5), no process
+                 may keep a pin, every process must end with the same
+                 service tallies and launch bool_mm_masked and
+                 minplus_mm_masked, and rank 0 count_mm_masked (a BC
+                 query splits its sources over the ranks: a one-source
+                 one counts on rank 0).  Prints the serve stats
+                 (dispatches, dedup sizes, fallbacks), the replies by kind
+                 and rung, the wall and the control bytes beside the
+                 collectives' bytes moved;
   3h. LM families -- the SSM, hybrid and encoder-decoder models
                  (FAMILY_ARCHS: mamba2_780m, zamba2_12b, whisper_large_v3)
                  through the serve entry point at full width and depth,
@@ -222,6 +245,15 @@ exit code:
                  the uninterrupted run bit for bit (both under
                  torch.use_deterministic_algorithms); serve --ckpt-dir must
                  give the trained parameters' prefill logits bit for bit.
+                 Then a resume from the reference's checkpoint layout
+                 (reference_resume): granite_moe_1b at full width cut to
+                 REF_RESUME_LAYERS layers trained REF_RESUME_STEPS steps at
+                 TRAIN_SEQ tokens, its state written as the reference's
+                 trainer writes it (stacked leaves, a manifest: this
+                 script's own copy of that writer), served by serve.main
+                 --ckpt-dir with the in-memory parameters' prefill logits,
+                 and resumed by train.main --ckpt-dir for one more step
+                 that must equal the uninterrupted run's bit for bit.
                  Prints step times, tokens/s, the model-FLOP share of the
                  bf16 peak and peak memory;
   3k. LM sharding -- four processes (dist.spawn) on cuda:0 over gloo on a
@@ -323,8 +355,9 @@ exit code:
                  over 3l's and 3m's processes).  The masked rows
                  carry their band-shape timings under "band" (and
                  count_mm_masked's backward under "band_t"), the
-                 flash_attention row 3h's four shapes under "encdec" and
-                 3i's three under "gemma3_llama4".
+                 flash_attention row 3h's four shapes under "encdec",
+                 3i's three under "gemma3_llama4" and the mesh's under
+                 "mesh".
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -335,7 +368,7 @@ import statistics
 import subprocess
 import sys
 import time
-from collections import deque
+from collections import Counter, deque
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_VERTICES, N_EDGES, SEED = 16384, 163840, 0
@@ -396,7 +429,7 @@ FLASH_SWEEP = [(1, 4, 4, 32, 32, 16, True, None),
 # FP32 yardstick, the static mode's shape and the packs' own times.
 EXTRA_KEYS = ("matmul_fp32_ms", "static", "pack_right_ms", "pack_left_ms",
               "pack_left_static_ms", "band", "band_t", "encdec",
-              "gemma3_llama4")
+              "gemma3_llama4", "mesh")
 LM_ARCHS = ("mistral_nemo_12b", "granite_moe_1b")
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # Two bf16 forward passes that differ only in where they round (the flash
@@ -440,6 +473,21 @@ LM2_FLASH = (
     ("llama4_maverick_400b", "llama4", 40, 8, None, LLAMA4_LAYERS),
 )
 LM2_HEAD_DIM = 128
+# flash_attention on the mesh's prefills (3l, 3m): one data row's MESH_BATCH
+# sequences, bf16.  arch, caller, heads, KV heads, Sq, Skv, head_dim, causal.
+MESH_BATCH = 2
+MESH_FLASH = (
+    ("granite_moe_1b", "3l granite prompt", 16, 8, 2048, 2048, 64, True),
+    ("granite_moe_1b", "3l granite first half", 16, 8, 1024, 1024, 64, True),
+    ("granite_moe_1b", "3l granite second half", 16, 8, 1024, 2048, 64,
+     True),
+    ("mistral_nemo_12b", "3l mistral", 32, 8, 2048, 2048, 128, True),
+    ("zamba2_12b", "3m zamba2 shared block", 32, 32, 2048, 2048, 64, True),
+    ("whisper_large_v3", "3m whisper encoder", 20, 20, 1500, 1500, 64, False),
+    ("whisper_large_v3", "3m whisper decoder self", 20, 20, 224, 224, 64,
+     True),
+    ("whisper_large_v3", "3m whisper cross", 20, 20, 224, 1500, 64, False),
+)
 # 3i's training: granite_moe_1b at full width and depth, at train_4k's
 # sequence; its global batch of 256 is cut to the largest of TRAIN_BATCHES
 # that fits the card.  The restart crashes at TRAIN_FAIL_AT and resumes from
@@ -447,6 +495,10 @@ LM2_HEAD_DIM = 128
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "granite_moe_1b", 4096, 12, 3e-4
 TRAIN_BATCHES = (8, 4, 2)
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 9
+# The resume from the reference's checkpoint layout: TRAIN_ARCH at full width
+# cut to REF_RESUME_LAYERS layers, one sequence of TRAIN_SEQ tokens a step,
+# its state written after REF_RESUME_STEPS steps, resumed for one more.
+REF_RESUME_LAYERS, REF_RESUME_STEPS = 2, 2
 # Reduced configs whose trainer gradients on the card are held against the
 # CPU's: the MoE (routing, dropped pairs, load-balance loss) and the SSD.
 TRAIN_PARITY_ARCHS = ("granite_moe_1b", "mamba2_780m")
@@ -1237,7 +1289,7 @@ def sweep_flash(torch, errs):
 
 
 def family_flash_inputs(torch, g, hq, sq, skv, rows, causal, hkv=None,
-                        d=FAMILY_HEAD_DIM):
+                        d=FAMILY_HEAD_DIM, batch=LM_BATCH):
     """Random bf16 q, k, v of one prefill shape (``hkv`` KV heads, default
     ``hq``; head_dim ``d``), laid out as the model hands them to the
     kernel: a rotated q or k is contiguous, an unrotated one (cross-
@@ -1249,14 +1301,14 @@ def family_flash_inputs(torch, g, hq, sq, skv, rows, causal, hkv=None,
         return torch.randn(dims, generator=g, device=DEV).to(torch.bfloat16)
 
     cross = not causal and rows is not None
-    q = (draw(LM_BATCH, sq, hq, d).transpose(1, 2) if cross
-         else draw(LM_BATCH, hq, sq, d))
+    q = (draw(batch, sq, hq, d).transpose(1, 2) if cross
+         else draw(batch, hq, sq, d))
     if rows is None:   # the encoder: k rotated, v as projected
-        k = draw(LM_BATCH, hkv, skv, d)
-        v = draw(LM_BATCH, skv, hkv, d).transpose(1, 2)
+        k = draw(batch, hkv, skv, d)
+        v = draw(batch, skv, hkv, d).transpose(1, 2)
     else:
-        k = draw(LM_BATCH, hkv, rows, d)[:, :, :skv]
-        v = draw(LM_BATCH, hkv, rows, d)[:, :, :skv]
+        k = draw(batch, hkv, rows, d)[:, :, :skv]
+        v = draw(batch, hkv, rows, d)[:, :, :skv]
     return q, k, v
 
 
@@ -1274,15 +1326,19 @@ def flash_shape_row(torch, errs, what, q, k, v, causal, window, extra):
                      flash_attention_ref(q, k, v, **kw), False, what,
                      FLASH_TOL["bfloat16"])
     sq, skv = q.shape[2], k.shape[2]
-    if window is None:
+    if window is None and (not causal or sq == skv):
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
     else:
+        # A window, or a causal prompt after a prefix: SDPA's is_causal
+        # aligns its mask top-left, the kernel's ends at the last key.
         i = torch.arange(sq, device=DEV)[:, None] + flash_offset(sq, skv,
                                                                  causal)
         j = torch.arange(skv, device=DEV)[None]
-        band = (j > i - window) & ((j <= i) if causal else True)
+        band = (j <= i) if causal else torch.ones_like(j > i)
+        if window is not None:
+            band = band & (j > i - window)
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
@@ -1327,6 +1383,24 @@ def lm2_flash_shapes(torch, errs):
         out.append(flash_shape_row(torch, errs, what, q, k, v, True, window,
                                    dict(arch=arch, caller=caller,
                                         launches_per_prefill=n)))
+        del q, k, v
+    return out
+
+
+def mesh_flash_shapes(torch, errs):
+    """flash_attention at the mesh's prefill shapes of phases 3l and 3m
+    (MESH_FLASH), on fresh K/V (the fresh rows a prefill attends to, or
+    the gathered prefix of a continuation).  Returns the sub-rows kept
+    under the kernel row's "mesh" key."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    out = []
+    for arch, caller, hq, hkv, sq, skv, d, causal in MESH_FLASH:
+        q, k, v = family_flash_inputs(torch, g, hq, sq, skv, None, causal,
+                                      hkv, d, batch=MESH_BATCH)
+        what = (f"{caller} {MESH_BATCH}x{hq}/{hkv}x{sq}x{skv}x{d} "
+                f"{'causal' if causal else 'full'}")
+        out.append(flash_shape_row(torch, errs, what, q, k, v, causal, None,
+                                   dict(arch=arch, caller=caller)))
         del q, k, v
     return out
 
@@ -2235,7 +2309,10 @@ def train_phase(torch, timings):
     train_grads_match_cpu(torch, timings)
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        return train_run(torch, timings, root)
+        launches = train_run(torch, timings, root)
+        shutil.rmtree(root)
+        os.makedirs(root)
+        return launches + reference_resume(torch, timings, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2383,6 +2460,150 @@ def train_run(torch, timings, root):
         raise AssertionError("serve --ckpt-dir differs from the trained "
                              "parameters")
     return kf.LAUNCHES["flash_attention"]
+
+
+def stacked(torch, tree):
+    """The reference's layout of a port tree: every list of per-layer
+    trees stacked into one tree of [L, ...] tensors ([S, K, ...] for a
+    list of lists)."""
+    if isinstance(tree, list):
+        parts = [stacked(torch, t) for t in tree]
+        if isinstance(parts[0], dict):
+            return {k: stacked(torch, [p[k] for p in parts])
+                    for k in parts[0]}
+        return torch.stack(parts)
+    if isinstance(tree, dict):
+        return {k: stacked(torch, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(stacked(torch, v) for v in tree))
+    return tree
+
+
+def save_reference_layout(torch, np, ckpt_dir, step, tree):
+    """Write ``tree`` as the reference's trainer writes its state (its
+    checkpoint/checkpointer.py save_checkpoint; a copy, this script
+    imports nothing of the reference): the per-layer lists stacked, one
+    .npy a leaf named by its path (a NamedTuple's field names, dict keys
+    sorted), bfloat16 as its raw bits under the descr '<V2', the manifest
+    last by an atomic rename, then index.json."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    os.makedirs(d, exist_ok=True)
+    manifest = {"step": step, "version": 1, "leaves": {}, "time": time.time()}
+
+    def leaf(name, t):
+        fn = name.replace("/", ".") + ".npy"
+        if t.dtype == torch.bfloat16:
+            dtype = "bfloat16"
+            with open(os.path.join(d, fn), "wb") as f:
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": "<V2", "fortran_order": False,
+                    "shape": tuple(t.shape)})
+                f.write(t.view(torch.int16).numpy().tobytes())
+        else:
+            arr = t.numpy()
+            np.save(os.path.join(d, fn), arr)
+            dtype = str(arr.dtype)
+        manifest["leaves"][name] = {"file": fn, "shape": list(t.shape),
+                                    "dtype": dtype}
+
+    def walk(x, path):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            for name, child in zip(x._fields, x):
+                walk(child, path + (name,))
+        elif isinstance(x, dict):
+            for key in sorted(x):
+                walk(x[key], path + (str(key),))
+        else:
+            leaf("/".join(path), x.detach().contiguous().cpu())
+
+    walk(stacked(torch, tree), ())
+    for name, data in (("manifest.json", manifest),
+                       ("index.json", {"latest_step": step, "version": 1})):
+        where = d if name == "manifest.json" else ckpt_dir
+        tmp = os.path.join(where, name + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, os.path.join(where, name))
+    return manifest
+
+
+def reference_resume(torch, timings, root):
+    """TRAIN_ARCH at full width cut to REF_RESUME_LAYERS layers through
+    ``train.main`` (one TRAIN_SEQ sequence a step, under
+    torch.use_deterministic_algorithms): REF_RESUME_STEPS + 1 steps from
+    memory, and REF_RESUME_STEPS steps whose state goes to ``root`` in
+    the reference's layout (save_reference_layout).  ``serve.main
+    --ckpt-dir`` on it must give the prefill logits of a serve from the
+    in-memory parameters bit for bit; ``train.main --ckpt-dir`` must
+    resume at REF_RESUME_STEPS and its step equal the uninterrupted run's
+    last step bit for bit.  Returns the flash launches of the serves."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import serve, train
+    from repro_torch.optim.tree import tree_leaves
+
+    cut = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=REF_RESUME_LAYERS)
+    real = train.get_config, serve.get_config
+    train.get_config = serve.get_config = lambda arch: cut
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        args = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+                "1", "--lr", str(TRAIN_LR), "--log-every", "1", "--device",
+                DEV]
+        total = str(REF_RESUME_STEPS + 1)
+        whole = train.main([*args, "--steps", total])
+        part = train.main([*args, "--steps", str(REF_RESUME_STEPS)])
+        if part.losses != whole.losses[:REF_RESUME_STEPS]:
+            raise AssertionError(f"reference resume: the first steps differ "
+                                 f"({part.losses} / {whole.losses})")
+        manifest = save_reference_layout(torch, np, root, REF_RESUME_STEPS,
+                                         {"params": part.params,
+                                          "opt": part.opt})
+        mem_params = part.params
+        del part
+        kf.reset_launches()
+        serve_args = ["--arch", TRAIN_ARCH, "--batch", str(LM_BATCH),
+                      "--prompt-len", str(LM_PROMPT), "--gen", "2",
+                      "--device", DEV]
+        s = serve.main([*serve_args, "--ckpt-dir", root])
+        mem = serve.serve(cut, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                          gen_len=2, device=DEV, params=mem_params)
+        launches = kf.LAUNCHES["flash_attention"]
+        served = torch.equal(s.prefill_logits, mem.prefill_logits)
+        del s, mem, mem_params
+        resumed = train.main([*args, "--steps", total, "--ckpt-dir", root])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        train.get_config, serve.get_config = real
+    wall = time.perf_counter() - t0
+    timings[f"{TRAIN_ARCH} resume from the reference's layout"] = wall
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves({"params": resumed.params, "opt": resumed.opt}),
+        tree_leaves({"params": whole.params, "opt": whole.opt})))
+    stacked_leaves = [n for n in manifest["leaves"]
+                      if n.startswith("params/layers/")]
+    log(f"  reference layout: {TRAIN_ARCH} cut to {REF_RESUME_LAYERS} "
+        f"layers, {len(manifest['leaves'])} leaves ({len(stacked_leaves)} "
+        f"stacked params/layers leaves, e.g. {stacked_leaves[0]} "
+        f"{manifest['leaves'][stacked_leaves[0]]['shape']}); serve "
+        f"--ckpt-dir prefill logits bit-identical to the in-memory "
+        f"parameters': {served}; train --ckpt-dir resumed at step "
+        f"{resumed.start_step}, loss {resumed.losses} against the "
+        f"uninterrupted {whole.losses[REF_RESUME_STEPS:]}, state "
+        f"bit-identical: {same}; {wall:.2f} s")
+    if not served:
+        raise AssertionError("serve --ckpt-dir on the reference's layout "
+                             "differs from the in-memory parameters")
+    if (resumed.start_step != REF_RESUME_STEPS or not same
+            or resumed.losses != whole.losses[REF_RESUME_STEPS:]):
+        raise AssertionError("train --ckpt-dir on the reference's layout "
+                             "differs from the uninterrupted run")
+    return launches
 
 
 # --------------------------------- phase 3e --------------------------------
@@ -3269,6 +3490,7 @@ def serve_phase(torch, np, timings):
 # --------------------------------- phase 3g --------------------------------
 
 SHARD_WAIT = 300        # seconds any one wait of 3g's front-end check may take
+SHARD_WAVE = 3          # a front-end client waits for its replies every 3 asks
 
 
 class CollectiveTally:
@@ -3345,11 +3567,16 @@ def shard_stream(torch, svc, bc_scores, stream, sources, sync=True):
     return replies, scores, score_walls, time.perf_counter() - t0
 
 
-def shard_front_end(torch, svc, sources):
+def shard_front_end(torch, svc, sources, sync=True):
     """The async front end over the sharded service: three clients ask
-    BFS/SSSP/BC from ``sources`` while two more commits land; every reply
-    must equal the port's single-source query on the state at its version
-    and carry the agreement flag.  Returns (replies, serve stats)."""
+    BFS/SSSP/BC from ``sources`` in waves of SHARD_WAVE (each wave waits
+    for its replies) while two more commits land, the first once a third
+    of the replies are in, the second at two thirds, so later requests
+    meet a changed graph and collect; every reply must equal the port's
+    single-source query on the state at its version and carry the
+    agreement flag.  On a DistMesh this is rank 0's part
+    (the other ranks follow).  ``sync``: synchronise the card before the
+    replies are read.  Returns (replies, serve stats)."""
     import threading
 
     from repro_torch.core import PUTE
@@ -3358,14 +3585,27 @@ def shard_front_end(torch, svc, sources):
     asks = [(kind, [src]) for src in sources for kind in KINDS]
     futs, errs = [], []
     lock = threading.Lock()
+    replied = threading.Condition()
+    n_replied = [0]
+
+    def note(_):
+        with replied:
+            n_replied[0] += 1
+            replied.notify_all()
 
     def client(c):
         try:
-            for k in range(len(asks)):
-                kind, srcs = asks[(c + k) % len(asks)]
-                f = srv.query_async(kind, srcs)
-                with lock:
-                    futs.append((kind, srcs, f))
+            for w in range(0, len(asks), SHARD_WAVE):
+                wave = []
+                for k in range(w, w + SHARD_WAVE):
+                    kind, srcs = asks[(c + k) % len(asks)]
+                    f = srv.query_async(kind, srcs)
+                    f.add_done_callback(note)
+                    wave.append(f)
+                    with lock:
+                        futs.append((kind, srcs, f))
+                for f in wave:
+                    f.exception(timeout=SHARD_WAIT)
         except Exception as e:  # the check below reports it
             errs.append(e)
 
@@ -3377,7 +3617,12 @@ def shard_front_end(torch, svc, sources):
                    for c in range(3)]
         for t in threads:
             t.start()
-        for ops in extra:
+        for i, ops in enumerate(extra):
+            with replied:
+                if not replied.wait_for(
+                        lambda: n_replied[0] >= (i + 1) * len(asks),
+                        timeout=SHARD_WAIT):
+                    raise AssertionError("3g front end: replies stalled")
             srv.submit_many(ops)
             srv.flush()
         for t in threads:
@@ -3390,7 +3635,8 @@ def shard_front_end(torch, svc, sources):
         srv.stop(timeout=SHARD_WAIT)
     if errs:
         raise AssertionError(f"3g front end: clients raised {errs[:3]}")
-    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.synchronize()
     checked = 0
     for kind, srcs, f in futs:
         reply = f.result(timeout=SHARD_WAIT)
@@ -3539,9 +3785,13 @@ DIST_JOIN = 600         # seconds 3j's four processes may take in all
 # Ring mode moves about 1.3e10 B a BC query through host memory under gloo
 # (3g's counts; 14-21 s a BC collect, 45 s a cold bc_scores on the H100's
 # host): 3j's ring run takes the first RING_COMMITS commits of the stream
-# and no bc_scores; gather mode runs all COMMITS with bc_scores at 3g's
-# versions.
+# and no bc_scores; gather mode runs the first GATHER_COMMITS with
+# bc_scores at 3g's versions up to it (0 and 8).  GATHER_COMMITS is cut from
+# COMMITS for the run's time: with the front end over the processes the
+# whole run took 1197.9 s of its 1200 (NVIDIA H100 80GB HBM3, 700.00 W);
+# 3g keeps all COMMITS on thread ranks.
 RING_COMMITS = 2
+GATHER_COMMITS = 8
 
 
 def dist_rank(mesh, cfg, stream, sources, ref_path):
@@ -3570,7 +3820,7 @@ def dist_rank(mesh, cfg, stream, sources, ref_path):
     want = [(kind, src, v, type(res)(*(x.to(dev) for x in res)))
             for kind, src, v, res in ref["want"]]
     out = {}
-    for bc_mode, commits, scored in (("gather", COMMITS, True),
+    for bc_mode, commits, scored in (("gather", GATHER_COMMITS, True),
                                      ("ring", RING_COMMITS, False)):
         svc = None
         if card:
@@ -3622,6 +3872,9 @@ def dist_rank(mesh, cfg, stream, sources, ref_path):
             "score_walls": score_walls, "coll_bytes": sum(coll),
             "moved": moved, "launches": launches, "stats": st.as_dict(),
             "peak": torch.cuda.max_memory_allocated(dev) if card else 0}
+        if bc_mode == "gather":
+            out["front_end"] = dist_front_end(torch, mesh, svc, tel,
+                                              sources, card)
         tel.close()
     # the dry run's graph engine cell, live on this graph (vcap cut)
     from repro_torch.launch import dryrun
@@ -3636,6 +3889,93 @@ def dist_rank(mesh, cfg, stream, sources, ref_path):
                         "count_mm_masked": kc.LAUNCHES["count_mm_masked"]}
     out["graph_cell"] = cell
     return out
+
+
+def dist_front_end(torch, mesh, svc, tel, sources, card):
+    """3j's front end on one process: 3g's schedule (shard_front_end)
+    through AsyncGraphService on ``svc``, rank 0 admitting and sequencing,
+    the other ranks following its commands.  Fails unless no pin is left
+    and, on the card, bool_mm_masked and minplus_mm_masked launched here
+    (the bands are split over the ranks) and, on rank 0, count_mm_masked:
+    a BC query splits its sources over the ranks (padded with dead
+    sources), so a one-source BC collect counts on rank 0 alone.  Returns
+    the replies checked (rank 0), the commands followed, the wall, the
+    serve and service tallies, the dedup sizes, what the transport moved
+    in it by op (the commands and the collects' rung messages under
+    "control") and the launches."""
+    from repro_torch.kernels import bool_mm as kb
+    from repro_torch.kernels import count_mm as kc
+    from repro_torch.kernels import minplus_mm as kmp
+    from repro_torch.serve import AsyncGraphService
+
+    for k in (kb, kmp, kc):
+        k.reset_launches()
+    moved0, n0 = dict(mesh.moved), len(tel.tracer.records)
+    dedup = tel.registry.find("serve_batch_size", rung="dedup")
+    sizes0 = {id(h): len(h.samples) for h in dedup}
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        checked, stats = shard_front_end(torch, svc, sources, sync=card)
+        commands = None
+    else:
+        checked, srv = 0, AsyncGraphService(svc, max_batch=16)
+        commands = srv.follow()
+        stats = srv.stats
+        if card:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if svc.ring.pinned_versions():
+        raise AssertionError(f"3j front end: rank {mesh.rank} left pins on "
+                             f"{svc.ring.pinned_versions()}")
+    launches = {"bool_mm_masked": kb.LAUNCHES["bool_mm_masked"],
+                "minplus_mm_masked": kmp.LAUNCHES["minplus_mm_masked"],
+                "count_mm_masked": kc.LAUNCHES["count_mm_masked"]}
+    for name, n in launches.items():
+        if (card and n <= 0
+                and (mesh.rank == 0 or name != "count_mm_masked")):
+            raise AssertionError(f"3j front end: rank {mesh.rank} never "
+                                 f"launched {name}")
+    return {
+        "replies": checked, "commands": commands, "wall": wall,
+        "serve": {k: getattr(stats, k) for k in (
+            "admitted", "dispatches", "batched_dispatches", "fallbacks",
+            "deadline_expired", "max_batch_seen")},
+        "stats": svc.stats.as_dict(),
+        "rungs": dict(Counter(
+            f"{r['kind']}/{r['mode']}" for r in tel.tracer.records[n0:]
+            if r.get("span") == "query" and "mode" in r)),
+        "dedup_sizes": [x for h in tel.registry.find(
+            "serve_batch_size", rung="dedup")
+            for x in h.samples[sizes0.get(id(h), 0):]],
+        "moved": {k: v - moved0.get(k, 0) for k, v in mesh.moved.items()
+                  if v != moved0.get(k, 0)},
+        "launches": launches}
+
+
+def report_front_end(outs, transport):
+    """3j's front-end lines: rank 0's replies, serve stats and wall, the
+    control bytes moved beside the collectives' (host staging apart);
+    every process must end with the same service tallies."""
+    fe = [o["front_end"] for o in outs]
+    if any(f["stats"] != fe[0]["stats"] for f in fe):
+        raise AssertionError("3j front end: the processes' service tallies "
+                             f"differ: {[f['stats'] for f in fe]}")
+    r0 = fe[0]
+    log(f"  {transport} front end (AsyncGraphService, rank 0 sequencing): "
+        f"{r0['replies']} replies == the single-source queries at their "
+        f"versions in {r0['wall']:.2f} s (rank 0; followers "
+        f"{', '.join('%.2f' % f['wall'] for f in fe[1:])} s, "
+        f"{fe[1]['commands'] if len(fe) > 1 else 0} commands); serve "
+        f"{r0['serve']}; dedup sizes {r0['dedup_sizes']}; replies by kind "
+        f"and rung {r0['rungs']}; {r0['stats']}")
+    moved = r0["moved"]
+    coll = sum(v for k, v in moved.items()
+               if k not in ("control", "host-staging"))
+    log(f"    moved by the transport (rank 0): control {moved.get('control', 0)}"
+        f" B (commands and rung messages) beside {coll:.4g} B of collectives "
+        f"({', '.join(f'{k} {v:.4g}' for k, v in sorted(moved.items()))});"
+        " launches " + "; ".join(f"rank {r} {f['launches']}"
+                                 for r, f in enumerate(fe)))
 
 
 def dist_phase(torch, np, timings, ref):
@@ -3664,9 +4004,10 @@ def dist_phase(torch, np, timings, ref):
         for transport, device in runs:
             torch.cuda.empty_cache()
             log(f"  transport {transport}: {SHARDS} processes on "
-                f"{device or 'one card each'}; gather mode on all {COMMITS} "
-                f"commits with bc_scores at 3g's versions, ring mode on the "
-                f"first {RING_COMMITS} and no bc_scores")
+                f"{device or 'one card each'}; gather mode on the first "
+                f"{GATHER_COMMITS} of {COMMITS} commits with bc_scores at 3g's "
+                f"versions, ring mode on the first {RING_COMMITS} and no "
+                f"bc_scores")
             t0 = time.perf_counter()
             outs = spawn(dist_rank, SHARDS, device=device,
                          transport=transport, timeout=DIST_TIMEOUT,
@@ -3675,6 +4016,7 @@ def dist_phase(torch, np, timings, ref):
             wall = time.perf_counter() - t0
             timings[f"3j {transport} (spawn to join)"] = wall
             report_dist(outs, transport)
+            report_front_end(outs, transport)
             report_graph_cell(outs, transport)
             for out in outs:
                 for mode in out.values():
@@ -3689,7 +4031,8 @@ def dist_phase(torch, np, timings, ref):
 
 def dist_cfg() -> dict:
     """The sizes 3j's processes run at, as this process has them."""
-    names = ("N_VERTICES", "N_EDGES", "SEED", "COMMITS", "RING_COMMITS",
+    names = ("N_VERTICES", "N_EDGES", "SEED", "COMMITS", "GATHER_COMMITS",
+             "RING_COMMITS",
              "SRC_CHUNK", "RING_DEPTH", "BATCH_SIZE")
     return {k: globals()[k] for k in names}
 
@@ -5184,6 +5527,7 @@ def main() -> int:
     sweep_flash(torch, errs)
     family_rows = family_flash_shapes(torch, errs)
     lm2_rows = lm2_flash_shapes(torch, errs)
+    mesh_rows = mesh_flash_shapes(torch, errs)
     timings["kernels"] = time.perf_counter() - t0
 
     log("== phase 3a: main path (GraphService)")
@@ -5212,6 +5556,7 @@ def main() -> int:
     log("== phase 3d: LM serving (mistral_nemo_12b, granite_moe_1b)")
     t0 = time.perf_counter()
     launches["flash_attention"], flash_row = lm_phase(torch, errs, timings)
+    flash_row["mesh"] = mesh_rows
     rows.append(flash_row)
     timings["LM phase total"] = time.perf_counter() - t0
     torch.cuda.empty_cache()

@@ -25,6 +25,14 @@ arrays): the raw bits under the ``.npy`` descr ``'<V2'`` / ``'<f1'``, and
 ``"bfloat16"`` / ``"float8_e5m2"`` as the manifest's dtype; they are read
 back as raw bits and viewed as the torch dtype.
 
+A restore also reads the layout the reference's trainer writes, where
+each per-layer leaf is one stacked file (``params/layers/attn/wq`` of
+shape ``[L, ...]``, ``opt/m/blocks/...`` of ``[S, K, ...]``): a leaf of
+the port's per-layer layout that the manifest lacks is copied out of
+its stacked file, memory-mapped, one slice (``models.convert
+.reference_name``); with ``verify=`` the checksum covers the whole
+stacked file, as the reference wrote it.  Saves keep the port's layout.
+
 On a mesh of processes (``launch.mesh``) a restore with ``mesh=`` /
 ``specs=`` reads each leaf memory-mapped and keeps only this rank's block
 (elastic: the files do not record the mesh that wrote them, so a state
@@ -262,7 +270,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     ``tree_like`` supplies the structure and the dtypes (tensors, ``meta``
     tensors as :func:`like_from_manifest` builds, or numpy arrays); every
     leaf comes back as a tensor on ``device`` (default ``"cuda"``, which
-    raises without CUDA).  Only the leaves ``tree_like`` names are read.
+    raises without CUDA).  Only the leaves ``tree_like`` names are read;
+    one that the manifest lacks is read from the reference's stacked leaf
+    (module docstring), and one under neither name raises ``KeyError``.
     With ``mesh`` (a mesh of processes) and ``specs`` (a tree of
     ``launch.mesh.P`` like ``tree_like``; ``None`` leaves replicate), each
     leaf is mapped, not read, and only this rank's block is copied out.
@@ -288,13 +298,16 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     names = [_path_str(path) for path, _ in _leaves(tree_like)]
     for _ in range(max_retries):
         m1 = read_manifest(ckpt_dir, step)
+        sources = _sources(m1["leaves"], names, step)
         d = os.path.join(ckpt_dir, f"step_{step:08d}")
         loaded = {}
         ok = True
-        for name in names:
+        for name, idx in dict(sources.values()).items():
             entry = m1["leaves"][name]
+            # A stacked leaf is mapped, and only the slices named copied out.
             arr = _load_leaf(os.path.join(d, entry["file"]), entry,
-                             mmap=mesh is not None and not verify)
+                             mmap=bool(idx) or (mesh is not None
+                                                and not verify))
             if verify and "sha1" in entry and (_checksum(_bits(arr))
                                                != entry["sha1"]):
                 ok = False          # leaf changed under us (ecnt mismatch)
@@ -306,8 +319,43 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like, *,
     else:
         raise RuntimeError("checkpoint kept changing during restore")
 
-    return _rebuild(tree_like, lambda name, like: _tensor(
-        loaded[name], like, dev, blocks.get(name)))
+    def leaf(name, like):
+        src, idx = sources[name]
+        block = blocks.get(name)
+        if idx:
+            have = tuple(loaded[src].shape)
+            if (any(i >= n for i, n in zip(idx, have))
+                    or have[len(idx):] != tuple(like.shape)):
+                raise ValueError(
+                    f"checkpoint step {step}: {name!r} is slice {idx} of the "
+                    f"stacked {src!r} {list(have)}, which does not hold a "
+                    f"{list(like.shape)} leaf there")
+            block = idx + (block or ())
+        return _tensor(loaded[src], like, dev, block)
+
+    return _rebuild(tree_like, leaf)
+
+
+def _sources(manifest_leaves: dict, names, step: int) -> dict:
+    """Where each leaf ``names`` lists is stored: ``name -> (manifest name,
+    leading indices)``.  A leaf of the port's layout (``params/layers/3/
+    ...``) that the manifest lacks is read from the reference's stacked
+    leaf (``params/layers/...``, slice 3), as ``repro.launch.train``
+    writes its state; a leaf under neither name raises ``KeyError``."""
+    from repro_torch.models.convert import reference_name
+
+    out = {}
+    for name in names:
+        if name in manifest_leaves:
+            out[name] = (name, ())
+            continue
+        ref = reference_name(name)
+        if ref is None or ref[0] not in manifest_leaves:
+            raise KeyError(
+                f"checkpoint step {step} has no leaf {name!r}"
+                + (f" nor the reference's stacked {ref[0]!r}" if ref else ""))
+        out[name] = ref
+    return out
 
 
 class Checkpointer:

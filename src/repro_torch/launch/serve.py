@@ -13,8 +13,9 @@ on every attention layer; decode runs the chunked attention over the
 cache.  ``--device`` defaults to ``cuda`` and raises where there is none;
 ``--device cpu`` runs the plain versions.  ``--ckpt-dir`` serves the
 parameters of the latest checkpoint there (what ``launch/train.py``
-saved), read through the versioned store's double-collect validation onto
-the serving device.  Serving runs under ``torch.no_grad()``.
+saved, or the reference's ``repro.launch.train`` in its stacked layout),
+read through the versioned store's double-collect validation onto the
+serving device.  Serving runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 

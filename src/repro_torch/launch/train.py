@@ -8,8 +8,9 @@
 here).  Weights are random, drawn from a ``torch.Generator`` seeded 0 on
 the training device; tokens come from ``SyntheticTokens`` (seed 0), a pure
 function of the step.  Checkpoints every ``--ckpt-every`` steps (async),
-resumes from the latest checkpoint in ``--ckpt-dir``, flags straggler
-steps with the heartbeat monitor.  ``main`` returns a ``TrainResult``.
+resumes from the latest checkpoint in ``--ckpt-dir`` (the port's own or
+one the reference's trainer wrote, its per-layer leaves stacked), flags
+straggler steps with the heartbeat monitor.  ``main`` returns a ``TrainResult``.
 
 ``--mesh single|multi`` trains on the production mesh of processes,
 ``("data", "model")`` or ``("pod", "data", "model")``, its sizes from

@@ -10,8 +10,16 @@ Mamba2), ``encoder`` / ``decoder`` (Whisper), ``tail`` and, stacked twice
 as [super-block, layer], ``blocks`` (Zamba2).  Both packages then compute
 the same function, which is what the parity tests compare.  It imports no
 JAX.
+
+``reference_name`` maps a leaf path of the port's layout (``params/layers/
+3/attn/wq``, ``opt/m/blocks/1/0/...``) to the reference's stacked leaf and
+the leading indices of its slice, by the same ``STACKED`` table: what a
+restore of a checkpoint the reference wrote reads
+(``repro_torch.checkpoint.restore_checkpoint``).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +43,23 @@ def _tree(x, fn):
 
 # Stacked subtrees of the reference's parameters: key -> leading axes.
 STACKED = {"layers": 1, "encoder": 1, "decoder": 1, "tail": 1, "blocks": 2}
+
+
+def reference_name(path) -> Optional[Tuple[str, Tuple[int, ...]]]:
+    """The reference's name of a port leaf and the leading indices of its
+    slice: ``"params/layers/3/attn/wq"`` -> ``("params/layers/attn/wq",
+    (3,))``, ``"opt/m/blocks/1/0/x"`` -> ``("opt/m/blocks/x", (1, 0))``.
+    ``path``: a ``/``-joined string or a sequence of keys.  ``None`` for a
+    leaf outside every stack (``opt/step``, ``params/embed``), whose name
+    is the same in both layouts."""
+    keys = path.split("/") if isinstance(path, str) else list(path)
+    for i, key in enumerate(keys):
+        depth = STACKED.get(key)
+        idx = keys[i + 1:i + 1 + depth] if depth else ()
+        if depth and len(idx) == depth and all(k.isdigit() for k in idx):
+            return ("/".join(keys[:i + 1] + keys[i + 1 + depth:]),
+                    tuple(int(k) for k in idx))
+    return None
 
 
 def _first_leaf(x):

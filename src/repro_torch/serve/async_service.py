@@ -61,6 +61,30 @@ invariant ``unchanged + delta + full == queries == clean query trace
 records`` holds for batched queries exactly as for sequential ones.
 Fallbacks are counted in ``ServeStats`` only, as the reference's code
 does.
+
+**Over a** :class:`~repro_torch.shard.dist.DistMesh` (a
+``ShardedGraphService`` with one process per rank) every process must run
+the same commits and collects in the same order, so rank 0 sequences and
+the other ranks follow.  Only rank 0 admits: ``query_async``, ``submit``,
+``submit_many`` and ``flush`` raise on another rank.  Rank 0's
+dispatcher is the one place that orders all work: each dispatch group
+``(kind, version, sources)``, after rank 0's clock has decided which of
+its requests expired, and each update (``submit_many``'s ops, a
+``flush``; the submitter waits for its turn) becomes a command, which
+rank 0 broadcasts (``DistMesh.broadcast``, framed) and then executes.
+The other ranks call :meth:`AsyncGraphService.follow`, which executes
+each command with the same calls in the same order -- the same
+``_dispatch_group`` (its fault-plan consults and the breaker's), the
+same collects with their nested control messages, the same per-request
+fallbacks -- on stand-ins for rank 0's requests, and returns at the stop
+command ``stop()`` sends after its drain.  Each command also carries the
+versions rank 0's admissions pinned since the last one (admissions never
+overlap a commit), so a follower pins them where rank 0 did and holds
+the same versions resident.  An idle dispatcher sends an empty command a
+quarter of the mesh's timeout apart, so a follower's receive never times
+out while rank 0 waits for clients; a crash of rank 0's dispatcher
+(``InjectedCrash``) aborts the mesh, and every follower raises
+``RankFailure`` at once.
 """
 from __future__ import annotations
 
@@ -70,6 +94,7 @@ import queue as queue_mod
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -80,7 +105,7 @@ from repro_torch.engine.service import GraphService, QueryReply
 from repro_torch.obs.trace import maybe_span
 from repro_torch.resil.faults import P_SERVE_DISPATCH, InjectedCrash, \
     inject
-from repro_torch.shard.dist import DistMesh
+from repro_torch.shard.dist import DistMesh, RankFailure
 
 from .batch import classify_local, dispatch_local_group
 
@@ -100,10 +125,35 @@ class _Request:
     t_admit: float
     deadline_at: Optional[float]     # absolute perf_counter bound, or None
     lane: object = None
+    aid: int = -1                    # admission number (DistMesh)
 
     def expired(self) -> bool:
         return (self.deadline_at is not None
                 and time.perf_counter() >= self.deadline_at)
+
+
+@dataclass
+class _Update:
+    """An update command on a DistMesh's rank 0, waiting for its turn in
+    the dispatcher's order: ``{"c": "u", "ops": [...]}`` or ``{"c":
+    "f"}`` (flush)."""
+
+    cmd: dict
+    future: Future
+
+
+def _wire(src):
+    """A query's sources as the command channel carries them (JSON)."""
+    if src is None:
+        return None
+    if isinstance(src, (list, tuple)) or getattr(src, "ndim", 0) > 0:
+        return [int(s) for s in (src.tolist() if hasattr(src, "tolist")
+                                 else src)]
+    return int(src)
+
+
+def _wire_op(op) -> list:
+    return [x.item() if hasattr(x, "item") else x for x in op]
 
 
 @dataclass
@@ -129,20 +179,27 @@ class AsyncGraphService:
     Use as a context manager (``with AsyncGraphService(svc) as srv:``) or
     call ``start()``/``stop()``.  ``query_async`` returns a Future;
     ``query`` blocks on it.  ``submit``/``flush`` pass through to the
-    (thread-safe) scheduler from any thread.
+    (thread-safe) scheduler from any thread.  Over a ``DistMesh``, rank 0
+    does all of this and the other ranks call ``follow()`` (module
+    docstring).
     """
 
     def __init__(self, service, *, max_batch: int = 32,
                  poll_ms: float = 2.0, max_queue: int = 4096):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        if isinstance(getattr(service, "mesh", None), DistMesh):
-            raise NotImplementedError(
-                "AsyncGraphService over a DistMesh is not built: its "
-                "threads order queries per process, and the processes must "
-                "run the same collects in the same order, which needs a "
-                "rank-0 dispatcher that broadcasts each dispatch (ROADMAP "
-                "queue 1, 'the front end over a DistMesh')")
+        mesh = getattr(service, "mesh", None)
+        #: the mesh of processes whose rank 0 sequences, or None
+        self._mesh = mesh if isinstance(mesh, DistMesh) else None
+        self._lead = self._mesh is None or self._mesh.rank == 0
+        # Rank 0: admissions since the last command ([admission, version])
+        # and admissions released before dispatch; admissions and commits
+        # never overlap.  A follower: its pins per admission.
+        self._admit_lock = threading.RLock()
+        self._admitted: list = []
+        self._released: list = []
+        self._next_aid = 0
+        self._pins: dict = {}
         self.service = service
         self.max_batch = max_batch
         self.poll_s = max(poll_ms, 0.1) / 1e3
@@ -160,12 +217,23 @@ class AsyncGraphService:
 
     # ----------------------------- lifecycle -----------------------------
 
-    def start(self) -> "AsyncGraphService":
-        if self._thread is not None:
-            raise RuntimeError("front end already started")
+    def _require_lead(self, what: str) -> None:
+        if not self._lead:
+            raise RuntimeError(
+                f"rank {self._mesh.rank} of a DistMesh does not {what}: rank "
+                "0 admits every request and update and sequences them; the "
+                "other ranks call follow()")
+
+    def _open_stream(self) -> None:
         device = self.service.ring.latest.state.device
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
+
+    def start(self) -> "AsyncGraphService":
+        self._require_lead("start a dispatcher")
+        if self._thread is not None:
+            raise RuntimeError("front end already started")
+        self._open_stream()
         self._running = True
         # The dispatcher runs in a copy of the STARTING thread's context:
         # contextvars (the active fault plan, tracing nesting defaults)
@@ -226,14 +294,49 @@ class AsyncGraphService:
     def submit(self, op) -> int:
         """Thread-safe update intake: the scheduler lock serializes the
         op-log; a filled batch commits on THIS caller's thread, overlapped
-        with the dispatcher's pinned-version query work."""
-        return self.service.submit(op)
+        with the dispatcher's pinned-version query work.  Over a
+        ``DistMesh`` the dispatcher commits it, in its order of commands,
+        and the caller waits for that."""
+        if self._mesh is None:
+            return self.service.submit(op)
+        return self._sequenced({"c": "u", "ops": [_wire_op(op)]})[0]
 
     def submit_many(self, ops) -> list:
-        return self.service.submit_many(ops)
+        if self._mesh is None:
+            return self.service.submit_many(ops)
+        return self._sequenced({"c": "u", "ops": [_wire_op(op)
+                                                  for op in ops]})
 
     def flush(self):
-        return self.service.flush()
+        if self._mesh is None:
+            return self.service.flush()
+        return self._sequenced({"c": "f"})
+
+    def _sequenced(self, cmd: dict):
+        """Rank 0: queue an update command behind the requests already
+        admitted and wait until the dispatcher has run it."""
+        self._require_lead("submit updates")
+        if self._thread is None:
+            raise RuntimeError("front end not started")
+        upd = _Update(cmd, Future())
+        try:
+            self._queue.put(upd, timeout=_ADMIT_TIMEOUT_S)
+        except queue_mod.Full:
+            raise RuntimeError("admission queue full") from None
+        thread = self._thread
+        while True:
+            try:
+                return upd.future.result(timeout=self.poll_s * 50)
+            except FutureTimeout:
+                if thread is None or not thread.is_alive():
+                    raise RuntimeError("the dispatcher ended before the "
+                                       "update ran") from None
+
+    def _run_update(self, cmd: dict):
+        """Every rank: one update command."""
+        if cmd["c"] == "f":
+            return self.service.flush()
+        return self.service.submit_many([tuple(op) for op in cmd["ops"]])
 
     # ------------------------------ queries ------------------------------
 
@@ -243,6 +346,7 @@ class AsyncGraphService:
         (or at the fallback path's dispatch version, which the reply
         names).  Only PG-Icn admission is served here; PG-Cn's
         double-collect loop needs the sequential path."""
+        self._require_lead("admit queries")
         if self._thread is None:
             raise RuntimeError("front end not started")
         if mode != "icn":
@@ -251,20 +355,33 @@ class AsyncGraphService:
         if kind not in self.service._kinds:
             raise KeyError(f"unknown query kind {kind!r}")
         self.service._check_srcs(kind, src)
+        if self._mesh is not None:
+            src = _wire(src)
         pol = self.service.policy
-        pin = self.service.ring.pin()        # atomic read-latest + pin
+        with self._admit_lock:
+            pin = self.service.ring.pin()    # atomic read-latest + pin
+            aid = self._next_aid
+            self._next_aid += 1
+            if self._mesh is not None:
+                self._admitted.append([aid, pin.version])
         now = time.perf_counter()
         deadline = (now + pol.deadline_ms / 1e3
                     if pol is not None and pol.deadline_ms != float("inf")
                     else None)
-        req = _Request(kind, src, pin.version, pin, Future(), now, deadline)
+        req = _Request(kind, src, pin.version, pin, Future(), now, deadline,
+                       aid=aid)
         with self._inflight_lock:
             self._inflight += 1
         try:
             self._queue.put(req, timeout=_ADMIT_TIMEOUT_S)
         except queue_mod.Full:
             self._done()
-            pin.release()
+            with self._admit_lock:
+                if [aid, pin.version] in self._admitted:
+                    self._admitted.remove([aid, pin.version])
+                elif self._mesh is not None:
+                    self._released.append(aid)
+                pin.release()
             raise RuntimeError("admission queue full") from None
         with self.stats._lock:
             self.stats.admitted += 1
@@ -329,13 +446,21 @@ class AsyncGraphService:
                 service=self.service._service_name).set(self._queue.qsize())
 
     def _loop(self) -> None:
+        idle_s = None if self._mesh is None else self._mesh.timeout / 4
         with torch.cuda.stream(self._stream):
+            last = time.perf_counter()
             while True:
                 try:
                     first = self._queue.get(timeout=self.poll_s)
                 except queue_mod.Empty:
                     if not self._running:
+                        if self._mesh is not None:
+                            self._command({"c": "s"})   # followers return
                         return
+                    if (idle_s is not None
+                            and time.perf_counter() - last >= idle_s):
+                        self._command({"c": "i"})   # keep followers alive
+                        last = time.perf_counter()
                     continue
                 batch = [first]
                 while len(batch) < self.max_batch:
@@ -346,10 +471,13 @@ class AsyncGraphService:
                 self._observe_queue_depth()
                 try:
                     self._dispatch(batch)
-                except InjectedCrash:
+                except (InjectedCrash, RankFailure):
                     # simulated process death: the dispatcher dies like
                     # the process would; unresolved futures stay pending,
-                    # exactly as a crashed server leaves its clients
+                    # exactly as a crashed server leaves its clients (and
+                    # a mesh's followers see their next receive fail)
+                    if self._mesh is not None:
+                        self._mesh.abort()
                     raise
                 except Exception as exc:  # pragma: no cover - defensive
                     # _dispatch_group degrades per request; anything that
@@ -357,8 +485,22 @@ class AsyncGraphService:
                     for req in batch:
                         if not req.future.done():
                             self._fail(req, exc)
+                last = time.perf_counter()
 
     def _dispatch(self, batch) -> None:
+        """Requests in groups; an update (a DistMesh's rank 0) keeps its
+        place between the requests queued before and after it."""
+        reqs = []
+        for item in batch:
+            if isinstance(item, _Update):
+                self._dispatch_requests(reqs)
+                reqs = []
+                self._sequence_update(item)
+            else:
+                reqs.append(item)
+        self._dispatch_requests(reqs)
+
+    def _dispatch_requests(self, batch) -> None:
         groups = {}
         for req in batch:
             groups.setdefault((req.kind, req.version), []).append(req)
@@ -366,14 +508,109 @@ class AsyncGraphService:
         # overwritten by an older group of the same batch.
         for (kind, version), reqs in sorted(groups.items(),
                                             key=lambda kv: kv[0][1]):
-            live = []
-            for req in reqs:
-                if req.expired():
-                    self._finish_expired(req)
-                else:
-                    live.append(req)
-            if live:
-                self._dispatch_group(kind, version, live)
+            expired = [req.expired() for req in reqs]   # rank 0's clock
+            if self._mesh is not None:
+                self._command({"c": "q", "k": kind, "v": version,
+                               "a": [req.aid for req in reqs],
+                               "s": [req.src for req in reqs],
+                               "x": [i for i, e in enumerate(expired) if e]})
+            self._run_group(kind, version, reqs, expired)
+
+    def _run_group(self, kind: str, version: int, reqs, expired) -> None:
+        live = []
+        for req, gone in zip(reqs, expired):
+            if gone:
+                self._finish_expired(req)
+            else:
+                live.append(req)
+        if live:
+            self._dispatch_group(kind, version, live)
+
+    # ----------------------- the mesh's command channel -------------------
+
+    def _command(self, cmd: dict) -> dict:
+        """Rank 0: broadcast ``cmd`` with the admissions pinned and
+        released since the last command; returns it as every rank has
+        it."""
+        with self._admit_lock:
+            cmd["p"], self._admitted = self._admitted, []
+            cmd["r"], self._released = self._released, []
+            return self._mesh.broadcast(cmd)
+
+    def _sequence_update(self, upd: _Update) -> None:
+        """Rank 0: broadcast and run an update command; no admission pins
+        a version until it has committed, so each pin lands between the
+        same two commands on every rank."""
+        with self._admit_lock:
+            cmd = self._command(upd.cmd)
+            try:
+                res = self._run_update(cmd)
+            except Exception as exc:    # the followers see the same
+                upd.future.set_exception(exc)
+                return
+            except BaseException as exc:
+                upd.future.set_exception(exc)
+                raise
+            upd.future.set_result(res)
+
+    def follow(self) -> int:
+        """A rank other than 0 of a DistMesh: execute rank 0's commands in
+        its order until its stop command; returns the number executed
+        (module docstring).  Any failure but ``RankFailure`` aborts the
+        mesh before it propagates, so rank 0 never waits on this rank."""
+        if self._mesh is None or self._lead:
+            raise RuntimeError("follow() runs on a rank other than 0 of a "
+                               "DistMesh; rank 0 start()s the dispatcher")
+        self._open_stream()
+        count = 0
+        try:
+            with torch.cuda.stream(self._stream):
+                while True:
+                    count += 1
+                    if self._follow(self._mesh.broadcast(None)):
+                        return count
+        except RankFailure:
+            raise
+        except BaseException:
+            self._mesh.abort()
+            raise
+        finally:
+            for pin in self._pins.values():
+                pin.release()
+            self._pins.clear()
+
+    def _follow(self, cmd: dict) -> bool:
+        """One of rank 0's commands on a follower; True at the stop."""
+        for aid, version in cmd["p"]:
+            self._pins[aid] = self.service.ring.pin(version)
+        for aid in cmd["r"]:
+            self._pins.pop(aid).release()
+        kind = cmd["c"]
+        if kind == "s":
+            return True
+        if kind in ("u", "f"):
+            try:
+                self._run_update(cmd)
+            except Exception:   # rank 0's submitter sees it
+                pass
+        elif kind == "q":
+            now = time.perf_counter()
+            reqs = [_Request(cmd["k"], src, cmd["v"], self._pins.pop(aid),
+                             Future(), now, None, aid=aid)
+                    for aid, src in zip(cmd["a"], cmd["s"])]
+            with self.stats._lock:
+                self.stats.admitted += len(reqs)
+            with self._inflight_lock:
+                self._inflight += len(reqs)
+            gone = set(cmd["x"])
+            try:
+                self._run_group(cmd["k"], cmd["v"], reqs,
+                                [i in gone for i in range(len(reqs))])
+            except Exception as exc:  # pragma: no cover - as rank 0's loop
+                for req in reqs:
+                    if not req.future.done():
+                        self._fail(req, exc)
+        return False
 
     def _dispatch_group(self, kind: str, version: int, reqs) -> None:
         svc = self.service
@@ -541,6 +778,9 @@ class AsyncGraphService:
             f"dispatch"))
 
     def _fail(self, req: _Request, exc: BaseException) -> None:
+        if isinstance(req, _Update):
+            req.future.set_exception(exc)
+            return
         try:
             self._release(req)
         finally:

@@ -89,7 +89,8 @@ TRANSPORTS = ("gloo", "nccl")
 
 _HEADER = 16    # bytes of a gloo payload's header: op code, sequence number
 _ALIGN = 8      # each tensor of a payload starts at a multiple of 8 bytes
-_CONTROL = 64   # bytes of a control message (a JSON value)
+_CONTROL = 64   # bytes of a control message's first frame
+_FRAME = 1 << 16    # bytes of each further frame of a longer one
 _OP_CODES = {"all-reduce": 1, "all-gather": 2, "collective-permute": 3,
              "merge": 4, "control": 5, "barrier": 6, "all-to-all": 7,
              "reduce-scatter": 8}
@@ -456,20 +457,36 @@ class DistMesh:
     # ------------------------------ control -------------------------------
 
     def broadcast(self, value):
-        """Rank 0's ``value`` (a JSON value of at most 64 bytes: a rung, a
-        flag), on every rank: the control message that keeps the ranks'
-        clock-driven decisions in step.  Counted in ``moved["control"]``,
+        """Rank 0's ``value`` (a JSON value), on every rank: the control
+        message that keeps the ranks' clock-driven decisions in step, and
+        the front end's commands (``serve.AsyncGraphService``).  Framed:
+        a first frame of 64 bytes holds the length and the first bytes,
+        and a longer value follows in frames of up to 64 KiB, as many as
+        it needs (the other ranks' ``value`` is ignored; they learn the
+        length from the first frame).  Counted in ``moved["control"]``,
         never in a group's collective bytes."""
-        raw = json.dumps(value).encode()
-        if len(raw) > _CONTROL:
-            raise ValueError(f"control message over {_CONTROL} bytes: "
-                             f"{value!r}")
-        msg = torch.zeros(_CONTROL + 1, dtype=torch.uint8)
-        msg[0] = len(raw)
-        msg[1:1 + len(raw)] = torch.frombuffer(bytearray(raw),
-                                               dtype=torch.uint8)
-        got = self._exchange("control", [msg], {}, to_device=False)[0][0]
-        return json.loads(bytes(got[1:1 + int(got[0])].tolist()))
+        raw = json.dumps(value).encode() if self.rank == 0 else b""
+        head = _CONTROL - 4
+        frame = torch.zeros(_CONTROL, dtype=torch.uint8)
+        frame[:4] = torch.tensor([len(raw)], dtype=torch.int32).view(
+            torch.uint8)
+        first = raw[:head]
+        if first:
+            frame[4:4 + len(first)] = torch.frombuffer(bytearray(first),
+                                                       dtype=torch.uint8)
+        got = self._exchange("control", [frame], {}, to_device=False)[0][0]
+        n = int(got[:4].view(torch.int32)[0])
+        out = [bytes(got[4:4 + min(n, head)].tolist())]
+        for off in range(head, n, _FRAME):
+            size = min(_FRAME, n - off)
+            chunk = torch.zeros(size, dtype=torch.uint8)
+            if self.rank == 0:
+                chunk.copy_(torch.frombuffer(bytearray(raw[off:off + size]),
+                                             dtype=torch.uint8))
+            out.append(self._exchange("control", [chunk], {},
+                                      to_device=False)[0][0].numpy()
+                       .tobytes())
+        return json.loads(b"".join(out))
 
     def barrier(self) -> None:
         """Every rank reached this point."""

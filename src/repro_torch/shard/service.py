@@ -28,7 +28,9 @@ the ``validated`` flag of a single-collect reply (``_icn_validated``).
 
 The view is refreshed in place and shared by every collect, so collects
 run one at a time (a service lock); updates and their commits do not
-take it.
+take it.  On a ``DistMesh`` that leaves their order to the caller: under
+the async front end (``serve.AsyncGraphService``) rank 0's dispatcher
+sequences every commit and collect, and the other processes follow.
 
 On a :class:`~repro_torch.shard.dist.DistMesh` every process runs the
 same commits and queries in the same order, and each decision that reads

@@ -60,6 +60,8 @@ def group_ops(mesh, xs, perm):
         "permute": g.ppermute((x, x.to(torch.int32)), perm),
         "merge": g.merge(x[:2]),
         "control": mesh.broadcast(["rank", r]),
+        # three frames: the first 60 bytes, 64 KiB, the rest
+        "long": mesh.broadcast({"rank": r, "n": list(range(20000))}),
     }
     mesh.barrier()
     out.update(bytes=dict(g.bytes), calls=dict(g.calls), moved=dict(g.moved),
@@ -68,9 +70,10 @@ def group_ops(mesh, xs, perm):
     return out
 
 
-def front_end_refuses(mesh, arrays):
-    """``AsyncGraphService`` over a ``DistMesh`` raises
-    ``NotImplementedError``; ``make_graph_mesh`` passes the mesh through;
+def front_end_on_mesh(mesh, arrays):
+    """``AsyncGraphService`` over a ``DistMesh`` is built: rank 0 starts
+    and stops its dispatcher, the others follow until its stop command
+    and refuse to admit; ``make_graph_mesh`` passes the mesh through;
     only rank 0 serves ``/metrics`` and may journal."""
     from repro_torch.launch.mesh import make_graph_mesh
     from repro_torch.serve import AsyncGraphService
@@ -79,11 +82,18 @@ def front_end_refuses(mesh, arrays):
     out = {"same_mesh": make_graph_mesh(mesh) is mesh}
     tel = Telemetry(block=False)
     svc = ts.ShardedGraphService(state, mesh, tile=TILE, telemetry=tel)
-    try:
-        AsyncGraphService(svc)
+    srv = AsyncGraphService(svc)
+    if mesh.rank:
+        try:
+            srv.query_async("bfs", [0])
+            out["front_end"] = "admitted on a follower"
+        except RuntimeError as e:
+            out["refused"] = str(e)
+            out["front_end"] = f"built, followed {srv.follow()} command(s)"
+    else:
+        srv.start()
+        srv.stop(timeout=30)
         out["front_end"] = "built"
-    except NotImplementedError as e:
-        out["front_end"] = str(e)
     server = svc.serve_metrics(port=0)
     out["metrics"] = server is not None
     if server is not None:
@@ -471,3 +481,192 @@ def breaker(mesh, seed):
             "reply_retries": reply.retries,
             "equal": same_single("bfs", reply.result, want.result),
             "trips": svc.breaker.trips, "stats": svc.stats.as_dict()}
+
+
+# ------------------------- the front end on the mesh ----------------------
+
+FRONT_WAIT = 120    # seconds any one wait of the front-end bodies may take
+
+
+def same_rows(kind, got, srcs, state) -> bool:
+    """Every row of a sharded reply against the single-source query of its
+    source on ``state`` (``same_single``'s criteria)."""
+    for i, src in enumerate(srcs):
+        row = type(got)(*(x[i:] if x.dim() and x.shape[0] == len(srcs)
+                          else x for x in got))
+        if not same_single(kind, row, _FRESH[kind](state, src)):
+            return False
+    return True
+
+
+def _front_end_lead(srv, state, chunks, asks, n_clients, sequential):
+    """Rank 0's clients: ``sequential``: one client asks every ask and
+    waits for each reply, a commit after each round; else ``n_clients``
+    threads ask every ask (rotated) while an updater commits ``chunks``
+    (each op submitted, then flushed; a faulted commit retried), one
+    version a chunk from ``state``.  Returns each reply as (kind, srcs,
+    version, mode, validated, degraded, result fields, held against the
+    single-source queries) or its error."""
+    import threading
+
+    futs, errs = [], []
+    lock = threading.Lock()
+
+    def commit(ops):
+        for op in ops:
+            try:
+                srv.submit(op)
+            except InjectedFault:
+                pass
+        for _ in range(64):
+            try:
+                srv.flush()
+                return
+            except InjectedFault:
+                pass
+        raise AssertionError("a commit never landed")
+
+    def client(c):
+        try:
+            for k in range(len(asks)):
+                kind, srcs = asks[(c + k) % len(asks)]
+                f = srv.query_async(kind, srcs)
+                with lock:
+                    futs.append((kind, srcs, f))
+        except Exception as e:  # pragma: no cover - harness guard
+            errs.append(e)
+
+    def updater():
+        try:
+            for ops in chunks:
+                commit(ops)
+        except Exception as e:  # pragma: no cover - harness guard
+            errs.append(e)
+
+    srv.start()
+    try:
+        if sequential:
+            for ops in list(chunks) + [None]:
+                for kind, srcs in asks:
+                    f = srv.query_async(kind, srcs)
+                    f.exception(timeout=FRONT_WAIT)
+                    futs.append((kind, srcs, f))
+                if ops is not None:
+                    commit(ops)
+        else:
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(n_clients)]
+            threads.append(threading.Thread(target=updater))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=FRONT_WAIT)
+                assert not t.is_alive(), "a client hung"
+        assert srv.drain(timeout=FRONT_WAIT)
+    finally:
+        srv.stop(timeout=FRONT_WAIT)
+    assert not errs, errs
+    states = [state]    # version v: the first v chunks committed
+    for ops in chunks:
+        states.append(tc.apply_ops(states[-1], ops,
+                                   batch_size=len(ops))[0])
+    out = []
+    for kind, srcs, f in futs:
+        exc = f.exception(timeout=FRONT_WAIT)
+        if exc is not None:
+            out.append((kind, srcs, type(exc).__name__))
+            continue
+        rep = f.result()
+        same = same_rows(kind, rep.result, srcs, states[rep.version])
+        out.append((kind, srcs, rep.version, rep.mode, rep.validated,
+                    rep.degraded, _np(rep.result), same))
+    return out
+
+
+def front_end(mesh, arrays, chunks, asks, bc_mode="gather", n_clients=3,
+              chaos=None, deadline_ms=None, sequential=False, ring_depth=8):
+    """``AsyncGraphService`` over ``ShardedGraphService`` on the mesh:
+    rank 0 serves ``_front_end_lead``'s schedule, the other ranks
+    ``follow()``.  ``chaos``: ``(seed, rate)`` of a ``FaultPlan`` active
+    on every rank; ``deadline_ms``: the policy's admission deadline;
+    ``ring_depth``: the service's (a shallow ring parks pinned versions).
+    Every rank returns its front end's and service's tallies, the control
+    bytes moved, the pins left, the admissions it finished as expired
+    and the plan's decisions."""
+    from repro_torch.serve import AsyncGraphService
+
+    plan = FaultPlan(seed=chaos[0], rate=chaos[1]) if chaos else None
+    policy = None
+    if plan is not None or deadline_ms is not None:
+        policy = ResiliencePolicy(
+            max_retries=2, deadline_ms=(float("inf") if deadline_ms is None
+                                        else deadline_ms))
+    state = tc.state_from_numpy(*arrays, device="cpu")
+    tel = Telemetry(block=False)
+    svc = ts.ShardedGraphService(state, mesh, tile=TILE,
+                                 batch_size=max(len(c) for c in chunks),
+                                 bc_mode=bc_mode, telemetry=tel,
+                                 policy=policy, ring_depth=ring_depth)
+    srv = AsyncGraphService(svc, max_batch=16)
+    expired = []
+    finish_expired = srv._finish_expired
+
+    def record(req):
+        expired.append(req.aid)
+        finish_expired(req)
+
+    srv._finish_expired = record
+    out = {"rank": mesh.rank}
+    with fault_scope(plan):
+        if mesh.rank:
+            out["commands"] = srv.follow()
+        else:
+            out["replies"] = _front_end_lead(srv, state, chunks, asks,
+                                             n_clients, sequential)
+    st = srv.stats
+    out.update(
+        serve={k: getattr(st, k) for k in (
+            "admitted", "batched_dispatches", "dispatches", "fallbacks",
+            "deadline_expired", "max_batch_seen")},
+        stats=svc.stats.as_dict(), version=svc.version,
+        control=mesh.moved.get("control", 0),
+        pinned=svc.ring.pinned_versions(), evictions=svc.ring.evictions,
+        expired=sorted(expired),
+        dedup=sum(sum(h.samples) for h in tel.registry.find(
+            "serve_batch_size", rung="dedup")),
+        fired=plan.fired if plan else 0,
+        log=list(plan.log) if plan else [])
+    tel.close()
+    return out
+
+
+def front_end_crash(mesh, arrays):
+    """Rank 0's dispatcher dies of an ``InjectedCrash`` at its second
+    dispatch; every follower must raise ``RankFailure`` then, not wait
+    out the mesh's timeout.  Every rank raises."""
+    import threading
+
+    from repro_torch.resil.faults import P_SERVE_DISPATCH
+    from repro_torch.serve import AsyncGraphService
+
+    state = tc.state_from_numpy(*arrays, device="cpu")
+    svc = ts.ShardedGraphService(state, mesh, tile=TILE)
+    srv = AsyncGraphService(svc)
+    if mesh.rank:
+        t0 = time.monotonic()
+        try:
+            srv.follow()
+        except ts.RankFailure as e:
+            raise ts.RankFailure(f"follower {mesh.rank} after "
+                                 f"{time.monotonic() - t0:.2f} s: {e}")
+        return "followed to the end"
+    died = []
+    threading.excepthook = lambda a: died.append(a.exc_type.__name__)
+    plan = FaultPlan({P_SERVE_DISPATCH: [1]},
+                     crash_points=[P_SERVE_DISPATCH])
+    with fault_scope(plan):
+        srv.start()
+    srv.query("bfs", [0], timeout=FRONT_WAIT)
+    srv.query_async("sssp", [1])
+    srv._thread.join(timeout=FRONT_WAIT)
+    raise RuntimeError(f"rank 0's dispatcher died of {died}")

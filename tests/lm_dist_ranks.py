@@ -227,3 +227,36 @@ def trainer_runs(mesh, runs):
         out.append({"losses": res.losses, "start": res.start_step,
                     "collectives": res.collectives})
     return out
+
+
+def reference_restore_blocks(mesh, dirs, step, argv):
+    """Each arch's train state, written by the reference at ``step`` into
+    ``dirs[arch]``, restored with ``mesh=`` / ``specs=`` against the
+    blocks ``steps.local_state`` cuts from a whole restore: (leaves,
+    leaves bit-equal) per arch; then ``train.main(argv, mesh=mesh)``."""
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.tree import tree_leaves
+
+    _mesh(mesh)
+    out = {"blocks": {}}
+    for arch, d in dirs.items():
+        cfg = reduced(get_config(arch))
+        model = get_model(cfg)
+        like = train._state_like(model, cfg.moment_dtype)
+        pspecs = model.specs()
+        specs = {"params": pspecs, "opt": AdamWState(
+            step=meshlib.P(), m=pspecs, v=pspecs)}
+        got = restore_checkpoint(d, step, like, device="cpu", mesh=mesh,
+                                 specs=specs)
+        whole = restore_checkpoint(d, step, like, device="cpu")
+        p_sh, o_sh = steps.train_state_shardings(model, mesh, like["params"],
+                                                 like["opt"])
+        want = {"params": steps.local_state(whole["params"], p_sh),
+                "opt": steps.local_state(whole["opt"], o_sh)}
+        pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+        out["blocks"][arch] = (len(pairs), sum(
+            a.shape == b.shape and torch.equal(a, b) for a, b in pairs))
+    res = train.main(argv, mesh=mesh)
+    out["trainer"] = {"start": res.start_step, "losses": res.losses}
+    return out

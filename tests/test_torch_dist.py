@@ -121,6 +121,7 @@ def test_group_matches_thread_group():
         assert torch.equal(out["merge"],
                            torch.cat([x[:2] for x in xs]))
         assert out["control"] == ["rank", 0]
+        assert out["long"] == {"rank": 0, "n": list(range(20000))}
         assert out["bytes"] == tg.bytes and out["calls"] == tg.calls, r
         # the merge and the control message are moved, never counted
         assert "merge" not in out["bytes"] and out["moved"]["merge"] > 0
@@ -164,10 +165,12 @@ def test_body_failure_reaches_every_rank():
 
 def test_front_end_metrics_and_journal_are_rank_zeros():
     arrays, _ = _graph()
-    outs = _spawn(dr.front_end_refuses, arrays)
+    outs = _spawn(dr.front_end_on_mesh, arrays)
     for r, out in enumerate(outs):
         assert out["same_mesh"]
-        assert "DistMesh" in out["front_end"], out["front_end"]
+        assert out["front_end"].startswith("built"), out["front_end"]
+        if r:
+            assert "rank 0 admits" in out["refused"], out["refused"]
         assert out["metrics"] == (r == 0)
         if r:
             assert "only rank 0 journals" in out["journal"]
