@@ -2628,9 +2628,10 @@ REGION_COVER = (1.02, 2.0)
 
 
 def collect_kernel_us(torch, fn):
-    """Run ``fn`` under ``torch.profiler``; returns, in launch order, one
-    ``(kind, device us)`` per ``collect:<kind>`` range the device timer
-    opened: the summed device time of the kernels launched inside it."""
+    """Run ``fn`` under ``torch.profiler``; returns, in launch order, the
+    device us of each ``collect`` range (the profiler range of the
+    ``collect`` span): the summed device time of the kernels launched
+    inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2644,11 +2645,10 @@ def collect_kernel_us(torch, fn):
             torch.cuda.synchronize()
     evts = sorted((e for e in prof.events()
                    if e.device_type == DeviceType.CPU
-                   and e.name.startswith("collect:")),
+                   and e.name == "collect"),
                   key=lambda e: e.time_range.start)
-    return [(e.name[len("collect:"):],
-             float(e.device_time_total if hasattr(e, "device_time_total")
-                   else e.cuda_time_total)) for e in evts]
+    return [float(e.device_time_total if hasattr(e, "device_time_total")
+                  else e.cuda_time_total) for e in evts]
 
 
 def same_result(torch, got, exp):
@@ -2838,14 +2838,16 @@ def options_phase(torch, np, timings):
         n0 = len(tel.tracer.records)
         regions = collect_kernel_us(torch, lambda: ladder_round(
             svc, tail[0], sources, len(stream)))
-        spans = [r for r in tel.tracer.records[n0:]
-                 if r["span"] == "collect"]
-        if [k for k, _ in regions] != [r["kind"] for r in spans]:
-            raise AssertionError(f"profiled collect ranges {regions} do not "
-                                 f"match the round's collect spans")
+        spans = sorted((r for r in tel.tracer.records[n0:]
+                        if r["span"] == "collect"), key=lambda r: r["id"])
+        if len(regions) != len(spans):
+            raise AssertionError(f"{len(regions)} profiled collect ranges "
+                                 f"for the round's {len(spans)} collect "
+                                 f"spans")
         scale, slack = REGION_COVER
         busy = {}
-        for (kind, kern), r in zip(regions, spans):
+        for kern, r in zip(regions, spans):
+            kind = r["kind"]
             if kern > r["device_us"] * scale + slack:
                 raise AssertionError(
                     f"collect:{kind} kernels {kern:.1f} us outside its "

@@ -41,6 +41,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs.trace import child_span, host_read
+
 from . import semiring
 from .graph_state import INF, NOKEY, GraphState, densify, live_edge_mask
 from .tiles import dense_views_from_tiles
@@ -680,6 +682,11 @@ def bc_sweep_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
     must run its level loops in lock-step on every rank, so it passes
     reductions over the ranks here; a rank's extra iterations are exact
     no-ops (empty frontiers add zeros, flows of absent levels are zero).
+
+    The two phases run in the spans ``bc_scores.forward`` and
+    ``bc_scores.backward``, each counting product in a
+    ``bc_scores.forward_level`` / ``bc_scores.backward_level`` child
+    (``obs.child_span``), and each loop control is an ``obs.host_read``.
     """
     if sync_any is None:
         sync_any = lambda p: p  # noqa: E731
@@ -687,47 +694,55 @@ def bc_sweep_ops(fwd_mm, bwd_mm, srcs: torch.Tensor, alive: torch.Tensor,
         sync_max = lambda x: x  # noqa: E731
     S = srcs.shape[0]
     dev = alive.device
-    srcc = srcs.clamp(0, V - 1).long()
-    ok = alive[srcc] & (srcs >= 0) & (srcs < V)
-    cold_front = torch.zeros((S, V), dtype=torch.float32, device=dev)
-    cold_front.scatter_(1, srcc[:, None], ok[:, None].float())
-    level = torch.where(cold_front > 0, 0, -1).to(torch.int32)
-    sigma = cold_front
-    lvl = torch.zeros((S,), dtype=torch.int32, device=dev)
-    if prior_level is not None:
-        cut = torch.as_tensor(cut, dtype=torch.int32, device=dev).expand(S)
-        # A now-ok source whose prior tree is EMPTY (dead when the prior
-        # was computed, resurrected since) looks untouched to the level
-        # cut but must restart cold.
-        rows = torch.arange(S, device=dev)
-        revived = ok & (prior_level[rows, srcc] < 0)
-        cut = torch.where(revived, 0, cut)
-        warm = (cut >= 1)[:, None]
-        keep = warm & (prior_level >= 0) & (prior_level < cut[:, None])
-        level = torch.where(warm, torch.where(keep, prior_level, -1), level)
-        sigma = torch.where(warm, torch.where(keep, prior_sigma, 0.0), sigma)
-        lvl = (cut - 1).clamp(min=0)
-    front = level == lvl[:, None]
+    with child_span("bc_scores.forward"):
+        srcc = srcs.clamp(0, V - 1).long()
+        ok = alive[srcc] & (srcs >= 0) & (srcs < V)
+        cold_front = torch.zeros((S, V), dtype=torch.float32, device=dev)
+        cold_front.scatter_(1, srcc[:, None], ok[:, None].float())
+        level = torch.where(cold_front > 0, 0, -1).to(torch.int32)
+        sigma = cold_front
+        lvl = torch.zeros((S,), dtype=torch.int32, device=dev)
+        if prior_level is not None:
+            cut = torch.as_tensor(cut, dtype=torch.int32,
+                                  device=dev).expand(S)
+            # A now-ok source whose prior tree is EMPTY (dead when the
+            # prior was computed, resurrected since) looks untouched to the
+            # level cut but must restart cold.
+            rows = torch.arange(S, device=dev)
+            revived = ok & (prior_level[rows, srcc] < 0)
+            cut = torch.where(revived, 0, cut)
+            warm = (cut >= 1)[:, None]
+            keep = warm & (prior_level >= 0) & (prior_level < cut[:, None])
+            level = torch.where(warm, torch.where(keep, prior_level, -1),
+                                level)
+            sigma = torch.where(warm, torch.where(keep, prior_sigma, 0.0),
+                                sigma)
+            lvl = (cut - 1).clamp(min=0)
+        front = level == lvl[:, None]
 
-    # Forward phase: one counting product per level does both jobs --
-    # frontier sigma is >= 1 on every frontier vertex and counts are exact
-    # integers, so adds > 0 is precisely the frontier hit.
-    while sync_any(bool(front.any()) and bool((lvl < V).any())):
-        adds = fwd_mm(torch.where(front, sigma, 0.0))
-        newly = (adds > 0) & (level < 0)
-        sigma = torch.where(newly, adds, sigma)
-        level = torch.where(newly, lvl[:, None] + 1, level)
-        front, lvl = newly, lvl + 1
+        # One counting product per level does both jobs -- frontier sigma
+        # is >= 1 on every frontier vertex and counts are exact integers,
+        # so adds > 0 is precisely the frontier hit.
+        while sync_any(host_read(bool, front.any())
+                       and host_read(bool, (lvl < V).any())):
+            with child_span("bc_scores.forward_level"):
+                adds = fwd_mm(torch.where(front, sigma, 0.0))
+                newly = (adds > 0) & (level < 0)
+                sigma = torch.where(newly, adds, sigma)
+                level = torch.where(newly, lvl[:, None] + 1, level)
+                front, lvl = newly, lvl + 1
 
     # Backward phase, deepest level first: pulling the flow of the level
     # below across edges is a counting product against A^T.
-    sig_safe = torch.where(sigma > 0, sigma, 1.0)
-    delta = torch.zeros_like(sigma)
-    for l in range(sync_max(int(level.max())) - 1, -1, -1):
-        g = torch.where(level == l + 1, (1.0 + delta) / sig_safe, 0.0)
-        pulled = bwd_mm(g)
-        delta = delta + torch.where(level == l, sigma * pulled, 0.0)
-    delta = torch.where(level == 0, 0.0, delta)  # sources contribute nothing
+    with child_span("bc_scores.backward"):
+        sig_safe = torch.where(sigma > 0, sigma, 1.0)
+        delta = torch.zeros_like(sigma)
+        for l in range(sync_max(host_read(int, level.max())) - 1, -1, -1):
+            with child_span("bc_scores.backward_level"):
+                g = torch.where(level == l + 1, (1.0 + delta) / sig_safe, 0.0)
+                pulled = bwd_mm(g)
+                delta = delta + torch.where(level == l, sigma * pulled, 0.0)
+        delta = torch.where(level == 0, 0.0, delta)  # sources add nothing
     return delta, sigma, level, ok
 
 
@@ -755,16 +770,18 @@ def bc_batched_dense(adj_mask: torch.Tensor, srcs: torch.Tensor,
     the source axis in chunks (the tail may be ragged); per-source results
     do not depend on the chunking.  ``prior_level``/``prior_sigma``/``cut``
     select the level-cut warm start, ``sync_any``/``sync_max`` the
-    lock-step hooks (see ``bc_sweep_ops``).
+    lock-step hooks (see ``bc_sweep_ops``).  The operands are prepared in a
+    ``bc_scores.operands`` span.
     """
-    a = (adj_mask & alive[:, None] & alive[None, :]).float()
-    at = a.t().contiguous()  # transposed once per call, not per level
-    amask_t = None if amask is None else amask.t().contiguous()
-    # both operands and their block masks are prepared once per call
-    fwd_mm = semiring.count_mm_against(a, use_kernel=use_kernel, amask=amask,
-                                       tile=tile)
-    bwd_mm = semiring.count_mm_against(at, use_kernel=use_kernel,
-                                       amask=amask_t, tile=tile)
+    with child_span("bc_scores.operands"):
+        a = (adj_mask & alive[:, None] & alive[None, :]).float()
+        at = a.t().contiguous()  # transposed once per call, not per level
+        amask_t = None if amask is None else amask.t().contiguous()
+        # both operands and their block masks are prepared once per call
+        fwd_mm = semiring.count_mm_against(a, use_kernel=use_kernel,
+                                           amask=amask, tile=tile)
+        bwd_mm = semiring.count_mm_against(at, use_kernel=use_kernel,
+                                           amask=amask_t, tile=tile)
     return bc_batched_ops(fwd_mm, bwd_mm, srcs, alive, a.shape[0],
                           src_chunk=src_chunk, prior_level=prior_level,
                           prior_sigma=prior_sigma, cut=cut,

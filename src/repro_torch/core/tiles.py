@@ -15,9 +15,12 @@ edge's source, and RemV bumps the source of every incident edge it kills).
 """
 from __future__ import annotations
 
+from operator import getitem
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.obs.trace import host_read
 
 from .graph_state import INF, NOKEY, GraphState, live_edge_mask, \
     scatter_min_dense
@@ -83,8 +86,10 @@ def build_tile_view(state: GraphState, tile: int = TILE) -> TileView:
     vp = _padded_dim(state.vcap, tile)
     nt = vp // tile
     live = live_edge_mask(state)
-    src, dst = state.esrc[live], state.edst[live]
-    w = scatter_min_dense(src, dst, state.ew[live], (vp, vp))
+    src = host_read(getitem, state.esrc, live)
+    dst = host_read(getitem, state.edst, live)
+    w = scatter_min_dense(src, dst, host_read(getitem, state.ew, live),
+                          (vp, vp))
     occ = _tile_counts(src // tile, dst // tile, nt, nt)
     return TileView(w, occ)
 
@@ -108,8 +113,9 @@ def row_window_slab(esrc: torch.Tensor, edst: torch.Tensor,
             & alive[es.clamp(0, vcap - 1).long()]
             & alive[ed.clamp(0, vcap - 1).long()])
     in_row = live & (es // tile == r)
-    src, dst = es[in_row], ed[in_row]
-    slab = scatter_min_dense(src - r * tile, dst, ws[in_row], (tile, vp))
+    src, dst = host_read(getitem, es, in_row), host_read(getitem, ed, in_row)
+    slab = scatter_min_dense(src - r * tile, dst,
+                             host_read(getitem, ws, in_row), (tile, vp))
     occ_row = _tile_counts(torch.zeros_like(dst), dst // tile, 1, nt)
     return slab, occ_row
 
@@ -127,7 +133,7 @@ def dirty_row_windows(state: GraphState, dirty: torch.Tensor, nt: int,
     cheaper; otherwise the (possibly empty) list of ``(row, lo, hi)``
     segments of the sorted edge table to re-derive, one per dirty tile row.
     """
-    rows = _dirty_tile_rows(dirty, nt, tile).nonzero().flatten()
+    rows = host_read(torch.nonzero, _dirty_tile_rows(dirty, nt, tile)).flatten()
     if rows.numel() > nt // 2:
         return None
     if rows.numel() == 0:
@@ -136,7 +142,9 @@ def dirty_row_windows(state: GraphState, dirty: torch.Tensor, nt: int,
     los = torch.searchsorted(state.esrc, bounds)
     his = torch.searchsorted(state.esrc, bounds + (tile - 1), right=True)
     return [(int(r), int(lo), int(hi)) for r, lo, hi in
-            zip(rows.tolist(), los.tolist(), his.tolist())]
+            zip(host_read(torch.Tensor.tolist, rows),
+                host_read(torch.Tensor.tolist, los),
+                host_read(torch.Tensor.tolist, his))]
 
 
 def refresh_tile_view(state: GraphState, prev: TileView | None,

@@ -56,6 +56,7 @@ from repro_torch.core.queries import (
 )
 from repro_torch.obs.cost import account_call
 from repro_torch.obs.trace import annotate as _trace_annotate
+from repro_torch.obs.trace import host_read
 
 
 @dataclass
@@ -116,7 +117,7 @@ def _dirty_stats(prior_reached: torch.Tensor, dirty: torch.Tensor):
     every mutation that can change the answer dirties a *reached* vertex.
     """
     both = torch.stack([dirty.sum(), (dirty & prior_reached).any().long()])
-    n_dirty, touched = both.tolist()
+    n_dirty, touched = host_read(torch.Tensor.tolist, both)
     return int(n_dirty), bool(touched)
 
 

@@ -28,6 +28,11 @@ commit latency: a commit slower than ``factor`` x the rolling median
 counts in ``scheduler_stragglers`` and marks its trace span
 ``straggler=True``.
 
+A commit runs in a ``commit`` span with the children ``commit.apply``
+(``apply_ops``) and ``commit.ring`` (the ring append): trace records with
+telemetry, ``torch.profiler`` ranges while the profiler records, with or
+without it (``repro_torch.obs.trace``).
+
 Submits and commits serialize on one re-entrant lock; queries never take
 it.
 """
@@ -151,11 +156,13 @@ class StreamScheduler:
                             coalesced=n_raw - len(ops)) as sp:
                 if mon is not None:
                     mon.start()
-                inject(P_SCHED_APPLY)
-                state, _ = apply_ops(self.ring.latest.state, ops,
-                                     batch_size=self.batch_size)
-                inject(P_SCHED_RING_COMMIT)
-                entry = self.ring.commit(state)
+                with maybe_span(tracer, "commit.apply"):
+                    inject(P_SCHED_APPLY)
+                    state, _ = apply_ops(self.ring.latest.state, ops,
+                                         batch_size=self.batch_size)
+                with maybe_span(tracer, "commit.ring"):
+                    inject(P_SCHED_RING_COMMIT)
+                    entry = self.ring.commit(state)
                 if mon is not None:
                     mon.stop(entry.version)
                     if mon.stragglers > stragglers0:

@@ -22,9 +22,12 @@ Options, all off by default and all the reference's:
 
   * ``telemetry=`` (:class:`repro_torch.obs.Telemetry`): a ``query`` span
     per query with ``collect`` / ``commit`` / ``tile_refresh`` children,
-    ``query_wall_us`` / ``query_device_us`` histograms, per-signature cost
-    accounting; ``device_us`` is CUDA-event stream time on the card
-    (``repro_torch.obs.profile``);
+    a ``bc_scores`` span per ``bc_scores()`` with its phases as children
+    (``bc_scores`` below), ``query_wall_us`` / ``query_device_us``
+    histograms, per-signature cost accounting; ``device_us`` is
+    CUDA-event stream time on the card (``repro_torch.obs.profile``).
+    The spans are ``torch.profiler`` ranges too, with or without
+    telemetry, while the profiler records;
   * ``adaptive=`` (:class:`repro_torch.obs.AdaptiveThresholds` or True):
     the ladder consults a self-tuned per-kind crossover (needs telemetry);
   * ``policy=`` (:class:`repro_torch.resil.ResiliencePolicy`): a raising
@@ -65,7 +68,8 @@ from repro_torch.core.tiles import TileView, dense_views_from_tiles, \
     refresh_tile_view
 from repro_torch.obs import AdaptiveThresholds, CounterStruct, ModeCounters, \
     Telemetry, block_until_ready
-from repro_torch.obs.trace import maybe_span
+from repro_torch.obs.trace import HOST_READ, child_span, host_read, \
+    maybe_span
 from repro_torch.resil.faults import (
     P_CACHE_STORE,
     P_COLLECT_DELTA,
@@ -112,6 +116,14 @@ def resolve_dirty_thresholds(spec: ThresholdSpec,
         return {k: float(spec) for k in kinds}
     return {k: float(spec.get(k, DEFAULT_DIRTY_THRESHOLDS.get(k, 0.25)))
             for k in kinds}
+
+
+def _set_counts(sp) -> None:
+    """A ``bc_scores`` record's counts: its counting products per sweep
+    phase and its device-to-host reads."""
+    sp.set(forward_levels=sp.counts.get("bc_scores.forward_level", 0),
+           backward_levels=sp.counts.get("bc_scores.backward_level", 0),
+           host_reads=sp.counts.get(HOST_READ, 0))
 
 
 class ServiceStats(CounterStruct):
@@ -756,6 +768,14 @@ class GraphService(BaseGraphService):
         bit-identical to the cold sweep.  Mode tallies land in
         ``bc_scores_stats``; the delta-vs-full crossover is
         ``_threshold("bc")``, so the adaptive controller reaches it.
+
+        A refresh runs in a ``bc_scores`` span (its record: ``mode``,
+        ``version``, ``n_dirty``, ``forward_levels``, ``backward_levels``,
+        ``host_reads``) whose children are its phases: ``bc_scores.plan``,
+        ``tile_refresh``, ``bc_scores.operands``, ``bc_scores.forward`` /
+        ``bc_scores.backward`` (one ``*_level`` child per counting product,
+        opened in ``queries.bc_sweep_ops``) and ``bc_scores.reduce``.  Every
+        device-to-host read of a refresh goes through ``obs.host_read``.
         """
         entry = self.ring.latest
         params = (use_kernel, src_chunk)
@@ -763,15 +783,26 @@ class GraphService(BaseGraphService):
         if (slot is not None and slot["version"] == entry.version
                 and slot["params"] == params):
             return slot["scores"], entry.version
+        tracer = self.telemetry.tracer if self.telemetry else None
+        with maybe_span(tracer, "bc_scores") as sp:
+            return self._bc_refresh(entry, params, slot, use_kernel,
+                                    src_chunk, sp)
+
+    def _bc_refresh(self, entry, params, slot, use_kernel, src_chunk, sp):
+        """``bc_scores`` below its cache check, inside its span ``sp``."""
         state = entry.state
-        mode, dirty = "full", None
-        if (slot is not None and slot["params"] == params
-                and tuple(slot["level"].shape) == (state.vcap, state.vcap)):
-            dirty = self.ring.dirty_between(slot["version"], entry.version)
+        mode, dirty, n_dirty, warm = "full", None, None, {}
+        with child_span("bc_scores.plan"):
+            if (slot is not None and slot["params"] == params
+                    and tuple(slot["level"].shape) == (state.vcap,
+                                                       state.vcap)):
+                dirty = self.ring.dirty_between(slot["version"],
+                                                entry.version)
             if dirty is not None:
                 n_dirty, touched = _dirty_stats(
                     (slot["level"] >= 0).any(dim=0), dirty)
-                if not touched and bool((~slot["ok"] & state.alive).any()):
+                if not touched and host_read(
+                        bool, (~slot["ok"] & state.alive).any()):
                     # A resurrected source's cached tree is empty: no dirty
                     # vertex can intersect it, but its row must recompute.
                     touched = True
@@ -779,27 +810,31 @@ class GraphService(BaseGraphService):
                     mode = "unchanged"
                 elif n_dirty / state.vcap <= self._threshold("bc"):
                     mode = "delta"
+                    warm = dict(prior_level=slot["level"],
+                                prior_sigma=slot["sigma"],
+                                cut=queries.bc_level_cut(slot["level"], dirty,
+                                                         state.alive))
         self.bc_scores_stats[mode] += 1
+        sp.set(mode=mode, version=entry.version, n_dirty=n_dirty)
         if mode == "unchanged":
             # Churn never touched any source's forward region: every tree --
             # hence every score -- stands as-is at the new version.
             slot["version"] = entry.version
+            _set_counts(sp)
             return slot["scores"], entry.version
         view = self.tile_view()
-        adj_mask, _, alive = dense_views_from_tiles(state, view)
-        srcs = torch.arange(state.vcap, dtype=torch.int32,
-                            device=state.device)
-        warm = {}
-        if mode == "delta":
-            warm = dict(prior_level=slot["level"], prior_sigma=slot["sigma"],
-                        cut=queries.bc_level_cut(slot["level"], dirty,
-                                                 state.alive))
+        with child_span("bc_scores.operands"):
+            adj_mask, _, alive = dense_views_from_tiles(state, view)
+            srcs = torch.arange(state.vcap, dtype=torch.int32,
+                                device=state.device)
         delta, sigma, level, ok = queries.bc_batched_dense(
             adj_mask, srcs, alive, use_kernel=use_kernel, amask=view.occ,
             src_chunk=src_chunk, **warm)
-        scores = torch.where(ok[:, None], delta, 0.0).sum(dim=0)
-        scores = torch.where(alive, scores, math.nan)
+        with child_span("bc_scores.reduce"):
+            scores = torch.where(ok[:, None], delta, 0.0).sum(dim=0)
+            scores = torch.where(alive, scores, math.nan)
         self._bc_scores = {"version": entry.version, "params": params,
                            "scores": scores, "level": level, "sigma": sigma,
                            "ok": ok}
+        _set_counts(sp)
         return scores, entry.version

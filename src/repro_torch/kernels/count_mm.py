@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from repro_torch.obs.trace import host_read
+
 from . import build
 from .backend import check_masks, check_operands, count_launch, \
     launch, masked_plain, on_cuda
@@ -74,8 +76,8 @@ def split3(x: torch.Tensor):
 def exact_in_bf16(a: torch.Tensor) -> bool:
     """True iff every entry of the f32 ``a`` is a bf16 value (its low 16
     bits are zero), checked a slab of rows at a time."""
-    return all(not bool((a[r:r + _SPLIT_ROWS].contiguous().view(torch.int32)
-                         & 0xFFFF).any())
+    return all(not host_read(bool, (a[r:r + _SPLIT_ROWS].contiguous()
+                                    .view(torch.int32) & 0xFFFF).any())
                for r in range(0, a.shape[0], _SPLIT_ROWS))
 
 

@@ -8,14 +8,20 @@
   * :mod:`repro_torch.obs.trace` -- span tracing with contextvar nesting
     and size-rotated JSONL export; every traced ``query()`` emits a record
     carrying kind / ring version / ladder mode / wall time / device time,
-    with child spans for scheduler commits, tile refreshes and each
-    collect of the PG-Cn loop;
+    with child spans for scheduler commits (``commit.apply``,
+    ``commit.ring``), tile refreshes and each collect of the PG-Cn loop,
+    and every ``bc_scores()`` a ``bc_scores`` record with its phases
+    (plan, tile refresh, operands, forward and backward levels, reduce)
+    and its device-to-host reads (``host_read``).  While
+    ``torch.profiler`` records, each span is also a ``record_function``
+    range of its name, with or without telemetry;
   * :mod:`repro_torch.obs.cost` -- per-signature cost accounting of the
     real call (peak and temporary bytes from the CUDA allocator),
     attributed to every query;
   * :mod:`repro_torch.obs.profile` -- per-collect device time from CUDA
     events on the launching thread's stream (the host clock for a CPU
-    result), behind a null-object default;
+    result), behind a null-object default; the ``collect`` span is its
+    profiler range;
   * :mod:`repro_torch.obs.expo` -- OpenMetrics exposition of the registry,
     live (:meth:`Telemetry.serve`) or one-shot
     (``python -m repro_torch.obs.expo``);
@@ -29,7 +35,8 @@
 (``GraphService(..., telemetry=Telemetry.make())``) to turn the
 instruments on.  Without one, services still tally their shim counters
 (each shim owns a private registry) but trace and time nothing -- the
-off path stays a single ``None`` check per query.
+off path stays a single ``None`` check per query, and a span site inside
+the engine a contextvar read and a boolean read.
 """
 from __future__ import annotations
 

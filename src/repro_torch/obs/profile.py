@@ -26,24 +26,22 @@ The events are recorded on the stream current in the thread that launches
 the work, so a query issued from a dispatcher thread is timed on that
 thread's stream.  ``measure(result)`` keeps the reference's dispatch-gap
 reading for API parity (it synchronises the result's device and times
-the wait).  Every region is wrapped in ``torch.profiler.record_function``
-named after its span, so a :func:`profiler_trace` timeline carries the
-same boundaries the JSONL trace does.
+the wait).  The timer opens no profiler range of its own: the span around
+a region (``collect``) is the range on the profiler's timeline
+(``repro_torch.obs.trace``).
 
 :class:`NullDeviceTimer` is the null object: no events, no
 synchronisation, ``us`` 0.0.
 """
 from __future__ import annotations
 
-import os
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
 
-__all__ = ["DeviceTimer", "NullDeviceTimer", "block_until_ready",
-           "profiler_trace"]
+__all__ = ["DeviceTimer", "NullDeviceTimer", "block_until_ready"]
 
 
 def _tensors(tree):
@@ -120,14 +118,9 @@ class DeviceTimer:
 
     blocking = True
 
-    def __init__(self, annotate: bool = True):
-        self.annotate = annotate
+    def __init__(self):
         self.total_us = 0.0
         self.measures = 0
-
-    def _annotation(self, name: str):
-        return (torch.profiler.record_function(name) if self.annotate
-                else nullcontext())
 
     @contextmanager
     def region(self, name: str = "device", device=None):
@@ -135,8 +128,7 @@ class DeviceTimer:
         the CPU); read the yielded region's ``us`` after the block."""
         reg = _Region(device)
         try:
-            with self._annotation(name):
-                yield reg
+            yield reg
         finally:
             reg.close(device)
         self.total_us += reg.us
@@ -144,8 +136,7 @@ class DeviceTimer:
 
     def measure(self, result, name: str = "device") -> float:
         t0 = time.perf_counter()
-        with self._annotation(name):
-            block_until_ready(result)
+        block_until_ready(result)
         us = (time.perf_counter() - t0) * 1e6
         self.total_us += us
         self.measures += 1
@@ -165,30 +156,3 @@ class NullDeviceTimer:
 
     def measure(self, result, name: str = "device") -> float:
         return 0.0
-
-
-def profiler_trace(logdir: str) -> Optional[object]:
-    """Start a ``torch.profiler`` session (CPU, plus CUDA when available).
-
-    Returns a closer whose ``.close()`` stops the session and exports a
-    Chrome trace to ``logdir/trace.json``, or ``None`` when the profiler
-    cannot start: the session is extra visibility, never a dependency.
-    """
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    try:
-        prof = torch.profiler.profile(activities=activities)
-        prof.__enter__()
-    except Exception:
-        return None
-
-    class _Session:
-        path = os.path.join(logdir, "trace.json")
-
-        def close(self):
-            prof.__exit__(None, None, None)
-            os.makedirs(logdir, exist_ok=True)
-            prof.export_chrome_trace(self.path)
-
-    return _Session()

@@ -15,7 +15,20 @@ per-kind/per-mode summary table.
 :func:`annotate` is the deliberately tiny hook the engine internals use:
 it sets attributes on the *current* span if one is active and costs one
 contextvar read otherwise — so ``engine.incremental`` can report dirty
-counts without knowing whether anyone is tracing.
+counts without knowing whether anyone is tracing.  :func:`child_span` is
+its counterpart for regions: code that holds no tracer (``core.queries``'
+level loops) opens a child of the current span, in that span's tracer.
+:func:`host_read` runs one device-to-host read, counting it on the current
+span.  ``Span.counts`` tallies the host reads and the child spans, by name,
+that ran inside a span, its descendants' included (a closing span adds its
+own to its parent's), so a record can report them.
+
+Every span is also a ``torch.profiler.record_function`` range of the same
+name while the profiler records, with or without a tracer, and every
+``host_read`` a range named ``host_read``: a profiled slice then puts the
+device's kernels and idle gaps down to the program's own phases.  Off the
+profiler and without a tracer, a span site costs one contextvar read and
+one boolean read, and allocates nothing.
 
 Telemetry is best-effort by design: a failing JSONL sink (disk full,
 rotated-away file, or the injected ``obs.sink`` fault) must never fail
@@ -44,15 +57,23 @@ import os
 import threading
 import time
 from contextlib import contextmanager
+from types import MappingProxyType
 from typing import IO, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from repro_torch.resil.faults import P_OBS_SINK, InjectedFault, inject
 
-__all__ = ["TRACE_SCHEMA", "Span", "Tracer", "annotate", "current_span"]
+__all__ = ["TRACE_SCHEMA", "Span", "Tracer", "annotate", "child_span",
+           "current_span", "host_read", "maybe_span"]
 
 #: bump when the record layout changes; readers reject unknown majors.
 #: The reference's layout, version 2: query spans carry device_us + flops.
 TRACE_SCHEMA = 2
+
+#: the name of a device-to-host read's profiler range and of its count
+HOST_READ = "host_read"
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_obs_span", default=None)
@@ -69,17 +90,47 @@ def annotate(**attrs) -> None:
         sp.set(**attrs)
 
 
-class Span:
-    """One open region; becomes a single trace record on exit."""
+def child_span(name: str):
+    """A child of the current span, recorded by that span's tracer; a bare
+    profiler range while profiling without one; else the null span."""
+    sp = _CURRENT.get()
+    if sp is not None:
+        return sp.tracer.span(name)
+    if _autograd_profiler._is_profiler_enabled:
+        return _Range(name)
+    return _NULL_SPAN
 
-    __slots__ = ("name", "id", "parent", "attrs", "t0", "wall_us")
+
+def host_read(read, *args):
+    """``read(*args)``: one device-to-host read (``bool``, ``int``,
+    ``Tensor.tolist``, a boolean-mask index, ...), counted on the current
+    span and, while profiling, inside a ``host_read`` range.  Returns what
+    ``read`` returns."""
+    sp = _CURRENT.get()
+    if sp is not None:
+        sp.counts[HOST_READ] = sp.counts.get(HOST_READ, 0) + 1
+    if _autograd_profiler._is_profiler_enabled:
+        with record_function(HOST_READ):
+            return read(*args)
+    return read(*args)
+
+
+class Span:
+    """One open region; becomes a single trace record on exit.  ``counts``:
+    the ``host_read`` calls and the child spans, by name, inside it, its
+    descendants' included."""
+
+    __slots__ = ("name", "id", "parent", "attrs", "t0", "wall_us", "tracer",
+                 "counts")
 
     def __init__(self, name: str, span_id: int, parent: Optional[int],
-                 attrs: dict):
+                 attrs: dict, tracer: "Tracer"):
         self.name = name
         self.id = span_id
         self.parent = parent
         self.attrs = attrs
+        self.tracer = tracer
+        self.counts: dict = {}
         self.t0 = time.perf_counter()
         self.wall_us = 0.0
 
@@ -121,13 +172,23 @@ class Tracer:
         with self._lock:
             span_id = self._next_id
             self._next_id += 1
-        sp = Span(name, span_id, getattr(_CURRENT.get(), "id", None), attrs)
+        sp = Span(name, span_id, getattr(_CURRENT.get(), "id", None), attrs,
+                  self)
         token = _CURRENT.set(sp)
+        rng = (record_function(name).__enter__()
+               if _autograd_profiler._is_profiler_enabled else None)
         try:
             yield sp
         finally:
+            if rng is not None:
+                rng.__exit__(None, None, None)
             _CURRENT.reset(token)
             sp.wall_us = (time.perf_counter() - sp.t0) * 1e6
+            outer = _CURRENT.get()
+            if outer is not None:
+                for key, n in sp.counts.items():
+                    outer.counts[key] = outer.counts.get(key, 0) + n
+                outer.counts[name] = outer.counts.get(name, 0) + 1
             self._emit(sp)
 
     def _emit(self, sp: Span) -> None:
@@ -193,22 +254,25 @@ class Tracer:
         self.close()
 
 
-@contextmanager
 def maybe_span(tracer: Optional[Tracer], name: str, **attrs):
-    """``tracer.span`` when tracing, a reusable null span otherwise — so
-    instrumented code writes one code path and pays a single ``None``
-    check when telemetry is off."""
-    if tracer is None:
-        yield _NULL_SPAN
-    else:
-        with tracer.span(name, **attrs) as sp:
-            yield sp
+    """``tracer.span`` when tracing; without a tracer a bare profiler range
+    while profiling, else a reusable null span — so instrumented code
+    writes one code path and pays a ``None`` check and a boolean read when
+    telemetry and the profiler are off."""
+    if tracer is not None:
+        return tracer.span(name, **attrs)
+    if _autograd_profiler._is_profiler_enabled:
+        return _Range(name)
+    return _NULL_SPAN
 
 
 class _NullSpan:
+    """The span of an untraced region, and its own context manager."""
+
     __slots__ = ()
     id = None
     wall_us = 0.0
+    counts = MappingProxyType({})
 
     def set(self, **attrs) -> None:
         pass
@@ -216,5 +280,29 @@ class _NullSpan:
     def setdefault(self, **attrs) -> None:
         pass
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
 
 _NULL_SPAN = _NullSpan()
+
+
+class _Range:
+    """A ``record_function`` range that yields the null span: a region's
+    place on the profiler's timeline without a tracer."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return _NULL_SPAN
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False

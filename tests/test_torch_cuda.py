@@ -703,13 +703,14 @@ def test_cuda_device_timer_reads_events(cuda_device):
     """On a CUDA device the region is timed by CUDA events: a few
     thousand-wide products read no more than the host's wall around the
     same region, and no less than the device time ``torch.profiler``
-    gives the kernels launched inside it (2% + 2 us for the two clocks)."""
+    gives the kernels launched inside the span around it (2% + 2 us for
+    the two clocks)."""
     import time
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.obs import DeviceTimer
+    from repro_torch.obs import DeviceTimer, Tracer
 
     x = torch.randn((2048, 2048), device=cuda_device)
     timer = DeviceTimer()
@@ -717,7 +718,8 @@ def test_cuda_device_timer_reads_events(cuda_device):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with timer.region("work", cuda_device) as reg:
+        with Tracer().span("work"), \
+                timer.region("work", cuda_device) as reg:
             for _ in range(8):
                 x = (x @ x).tanh()
         wall_us = (time.perf_counter() - t0) * 1e6

@@ -326,16 +326,3 @@ def test_telemetry_make_switches_and_query_span_fields(tmp_path):
     spans = {r["span"] for r in tel.tracer.records}
     assert {"query", "collect", "commit"} <= spans
     assert json.loads(json.dumps(tel.registry.snapshot()))
-
-
-def test_profiler_trace_exports_a_chrome_trace(tmp_path):
-    sess = tobs.profile.profiler_trace(str(tmp_path / "prof"))
-    assert sess is not None
-    timer = tobs.DeviceTimer()
-    with timer.region("collect:bfs", torch.device("cpu")):
-        torch.randn(64, 64).sum()
-    sess.close()
-    with open(sess.path) as f:
-        trace = json.load(f)
-    names = {e.get("name") for e in trace["traceEvents"]}
-    assert "collect:bfs" in names

@@ -48,6 +48,32 @@ N = 24
 BATCH = 4
 #: span fields that are measured times, not decisions.
 TIME_KEYS = {"t_s", "wall_us", "device_us", "block_us"}
+
+
+def _port_only(span: str) -> bool:
+    """The spans the port opens inside a BC refresh and a commit, which
+    the reference has no counterpart for."""
+    return (span == "bc_scores"
+            or span.startswith(("bc_scores.", "commit.")))
+
+
+def _as_reference_numbers(records):
+    """The port's records with its own spans folded away: a folded span's
+    children hang from its parent, and ids are renumbered in the order the
+    spans opened, as a tracer that never opened the folded spans numbers
+    them."""
+    parent = {r["id"]: r["parent"] for r in records}
+    folded = {r["id"] for r in records if _port_only(r["span"])}
+    kept = [r for r in records if r["id"] not in folded]
+    rank = {i: n for n, i in enumerate(sorted(r["id"] for r in kept))}
+
+    def outer(i):
+        while i in folded:
+            i = parent[i]
+        return None if i is None else rank[i]
+
+    return [dict(r, id=rank[r["id"]], parent=outer(r["parent"]))
+            for r in kept]
 #: thresholds a recovered service must resume from, not the defaults.
 LEARNED = {"bfs": 0.4, "sssp": 0.1, "bc": 0.02}
 
@@ -167,9 +193,10 @@ def _run_stream(pkg, tmp, seed, steps, rate, compact_every=3,
     svc.submit_many(_base_ops(seed))
     svc.flush()
     plan = pkg.resil.FaultPlan(seed=seed, rate=rate)
+    before = len(svc.telemetry.tracer.records)
     out = _drive(pkg, svc, plan, seed, steps)
     svc.telemetry.close()
-    return g0, svc, plan, out
+    return g0, svc, plan, out, before
 
 
 @pytest.mark.parametrize("seed,rate", [(0, 0.15), (1, 0.3)])
@@ -178,8 +205,8 @@ def test_faulted_stream_with_every_option_matches_reference(
     runs = {pkg.name: _run_stream(pkg, str(tmp_path / pkg.name), seed, 9,
                                   rate)
             for pkg in (REF, PORT)}
-    (_, jsvc, jplan, jout), (_, tsvc, tplan, tout) = runs["ref"], \
-        runs["port"]
+    (_, jsvc, jplan, jout, _), (_, tsvc, tplan, tout, before) = \
+        runs["ref"], runs["port"]
     assert jplan.fired > 0
     assert len(jout) == len(tout)
     degraded = retried = 0
@@ -203,10 +230,22 @@ def test_faulted_stream_with_every_option_matches_reference(
     assert tsvc.stats.as_dict() == jsvc.stats.as_dict()
     assert tsvc.scheduler.stats.as_dict() == jsvc.scheduler.stats.as_dict()
     assert dict(tsvc.bc_scores_stats) == dict(jsvc.bc_scores_stats)
-    assert tplan.hits == jplan.hits and tplan.log == jplan.log
+    # Every record the tracer writes hits ``obs.sink``: the port's own
+    # spans hit it once more each, so its draws there fall on other
+    # records.  Every other point is hit and fires as the reference's.
+    sink = tres.P_OBS_SINK
+    ours = sum(_port_only(r["span"])
+               for r in tsvc.telemetry.tracer.records[before:])
+    assert ours > 0
+    assert tplan.hits == dict(jplan.hits, **{sink: jplan.hits[sink] + ours})
+    assert ([e for e in tplan.log if e[0] != sink]
+            == [e for e in jplan.log if e[0] != sink])
+    assert tsvc.telemetry.tracer.sink_errors == sum(
+        fired for point, _, fired in tplan.log if point == sink)
     assert tsvc.breaker.snapshot() == jsvc.breaker.snapshot()
     assert tsvc.adaptive.snapshot() == jsvc.adaptive.snapshot()
-    jrec, trec = jsvc.telemetry.tracer.records, tsvc.telemetry.tracer.records
+    jrec = jsvc.telemetry.tracer.records
+    trec = _as_reference_numbers(tsvc.telemetry.tracer.records)
     assert [r["span"] for r in trec] == [r["span"] for r in jrec]
     for jr, tr in zip(jrec, trec):
         assert set(tr) == set(jr), (jr["span"], set(tr) ^ set(jr))
@@ -225,7 +264,7 @@ def test_recover_own_and_reference_journal(tmp_path, fixed_clock, compact):
     live = {}
     for pkg in (REF, PORT):
         tmp = str(tmp_path / pkg.name)
-        g0, svc, _, _ = _run_stream(pkg, tmp, 2, 7, 0.0,
+        g0, svc, _, _, _ = _run_stream(pkg, tmp, 2, 7, 0.0,
                                     compact_every=3 if compact else None,
                                     thresholds=LEARNED)
         svc.submit_many([(jc.PUTE, 1, 2, 2.0), (jc.PUTV, 3)])  # pending tail

@@ -98,7 +98,7 @@ def profile_window(torch, name, fn, top=8):
         wall_us = (time.perf_counter() - t0) * 1e6
     # Only device-side kernel events: a CPU op (aten::*) also carries the
     # device time of the kernels it launched, and a record_function range
-    # (the device timer's "collect:<kind>") spans them on the device
+    # (a span's, such as "collect") spans them on the device
     # timeline; either would count them twice.
     rows = [(evt.key, evt.count, _device_us(evt))
             for evt in prof.key_averages()
