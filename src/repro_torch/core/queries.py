@@ -469,6 +469,58 @@ def bc_level_cut(prior_level: torch.Tensor, dirty: torch.Tensor,
     return torch.minimum(c1, c2).to(torch.int32)
 
 
+# ------------------- vertex order of the all-source refresh -----------------
+# The refresh's levels and sigma are exact integers at any order of the
+# vertex axis, and delta moves only by f32 reassociation, so the order is
+# free.  Hubs first and edgeless vertices last packs a heavy-tailed graph's
+# entries into few blocks of the adjacency and of each level's frontier,
+# which the masked counting product then skips.
+
+#: the grain of the occupancy grid handed to the ordered refresh's
+#: products: the count kernel's k-step (``kernels.count_mm.BK``), so that
+#: a 64-row half of a block with no entry is skipped on its own
+ORDER_TILE = 64
+
+
+def bc_vertex_order(adj_mask: torch.Tensor,
+                    alive: torch.Tensor) -> torch.Tensor:
+    """int64[vcap]: a permutation of the vertex axis, hubs first.
+
+    The key is floor(log2) of each vertex's live out-degree (entries of
+    ``adj_mask`` towards live vertices), descending; dead and edgeless
+    vertices come last; ties keep vertex-id order (a stable sort).  So the
+    order is a function of the graph alone, and a vertex moves only when
+    its degree crosses a power of two.  Computed on the device, with no
+    host read.
+    """
+    deg = torch.where(alive, (adj_mask & alive[None, :]).sum(
+        dim=1, dtype=torch.int32), 0)
+    # frexp: deg = m * 2^e with m in [0.5, 1), so floor(log2 deg) = e - 1,
+    # exact for every integer
+    bucket = torch.where(deg > 0, torch.frexp(deg.double()).exponent - 1, -1)
+    return torch.sort(bucket, descending=True, stable=True).indices
+
+
+def permute_square(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``x[order][:, order]``: a square ``[V, V]`` array with both axes in
+    ``order``.  Rows, then columns: on the card two ``index_select`` passes
+    take under half the time of one two-index gather."""
+    return x.index_select(0, order).index_select(1, order)
+
+
+def block_occupancy(mask: torch.Tensor, tile: int) -> torch.Tensor:
+    """int32[ceil(R / tile), ceil(C / tile)]: 1 where the ``tile x tile``
+    block of ``mask`` holds an entry, the occupancy contract of the
+    products' ``amask``."""
+    r, c = mask.shape
+    rp, cp = -(-r // tile) * tile, -(-c // tile) * tile
+    if (rp, cp) != (r, c):
+        mask = torch.nn.functional.pad(mask, (0, cp - c, 0, rp - r))
+    # amax over the blocks' bytes: on the card a third of the time of any()
+    return mask.view(torch.uint8).reshape(rp // tile, tile, cp // tile,
+                                          tile).amax(dim=(1, 3)).to(torch.int32)
+
+
 # ------------------------ traversal-tree parents ---------------------------
 
 def _tree_parents(state: GraphState, tree: torch.Tensor, e: LiveEdges,

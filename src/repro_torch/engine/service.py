@@ -769,9 +769,16 @@ class GraphService(BaseGraphService):
         ``bc_scores_stats``; the delta-vs-full crossover is
         ``_threshold("bc")``, so the adaptive controller reaches it.
 
+        The sweeps run with the vertex axis in ``queries.bc_vertex_order``
+        (hubs first, edgeless vertices last), against an occupancy grid of
+        the reordered adjacency at ``queries.ORDER_TILE``; the results come
+        back in vertex order, and the cached trees stay in vertex order.
+
         A refresh runs in a ``bc_scores`` span (its record: ``mode``,
         ``version``, ``n_dirty``, ``forward_levels``, ``backward_levels``,
-        ``host_reads``) whose children are its phases: ``bc_scores.plan``,
+        ``host_reads``, and, where it swept, ``live_block_share``: the
+        share of the grid's blocks that hold an entry, read only for a
+        tracer's record) whose children are its phases: ``bc_scores.plan``,
         ``tile_refresh``, ``bc_scores.operands``, ``bc_scores.forward`` /
         ``bc_scores.backward`` (one ``*_level`` child per counting product,
         opened in ``queries.bc_sweep_ops``) and ``bc_scores.reduce``.  Every
@@ -824,15 +831,35 @@ class GraphService(BaseGraphService):
             return slot["scores"], entry.version
         view = self.tile_view()
         with child_span("bc_scores.operands"):
+            # The sweeps run with the vertex axis in a hub-first order
+            # (``queries.bc_vertex_order``), so that the products' block
+            # masks skip the empty blocks; source row i is vertex order[i].
             adj_mask, _, alive = dense_views_from_tiles(state, view)
+            order = queries.bc_vertex_order(adj_mask, alive)
+            adj_mask = queries.permute_square(adj_mask, order)
+            amask = queries.block_occupancy(adj_mask, queries.ORDER_TILE)
             srcs = torch.arange(state.vcap, dtype=torch.int32,
                                 device=state.device)
+            if warm:
+                warm = dict(
+                    prior_level=queries.permute_square(warm["prior_level"],
+                                                       order),
+                    prior_sigma=queries.permute_square(warm["prior_sigma"],
+                                                       order),
+                    cut=warm["cut"][order])
+            if sp.id is not None:   # a tracer's span: read for its record
+                sp.set(live_block_share=host_read(
+                    float, amask.float().mean()))
         delta, sigma, level, ok = queries.bc_batched_dense(
-            adj_mask, srcs, alive, use_kernel=use_kernel, amask=view.occ,
-            src_chunk=src_chunk, **warm)
+            adj_mask, srcs, alive[order], use_kernel=use_kernel, amask=amask,
+            tile=queries.ORDER_TILE, src_chunk=src_chunk, **warm)
         with child_span("bc_scores.reduce"):
-            scores = torch.where(ok[:, None], delta, 0.0).sum(dim=0)
+            back = torch.argsort(order)
+            scores = torch.where(ok[:, None], delta, 0.0).sum(dim=0)[back]
             scores = torch.where(alive, scores, math.nan)
+            level = queries.permute_square(level, back)
+            sigma = queries.permute_square(sigma, back)
+            ok = ok[back]
         self._bc_scores = {"version": entry.version, "params": params,
                            "scores": scores, "level": level, "sigma": sigma,
                            "ok": ok}

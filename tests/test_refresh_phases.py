@@ -2,7 +2,8 @@
 device operation counts in the spans open at its launch, matched by
 correlation id; the phase split of a slice per refresh that swept and per
 commit; the idle gaps named by the span open when they began; and the
-share of the busy time the spans hold."""
+share of the busy time the spans hold; each refresh's ``live_block_share``
+from a tracer's records."""
 import importlib.util
 import os
 from types import SimpleNamespace
@@ -201,3 +202,22 @@ def test_spans_of_matches_each_operation_to_its_launch_call_by_id():
     assert spans["bc_scores.forward"].device_s == pytest.approx(1040e-6)
     assert spans["bc_scores"].device_s == pytest.approx(1042e-6)
     assert (spans["bc_scores"].start, spans["bc_scores"].end) == (0.0, 1e-3)
+
+
+def test_live_block_shares_of_the_last_refreshes_oldest_first():
+    """Each refresh's ``live_block_share`` from a tracer's records: the
+    last ``count`` ``bc_scores`` records, other spans passed over, and
+    ``None`` for a refresh that swept nothing."""
+    records = [{"span": "bc_scores", "mode": "full",
+                "live_block_share": 0.5},
+               {"span": "bc_scores.forward"},
+               {"span": "bc_scores", "mode": "delta",
+                "live_block_share": 0.25},
+               {"span": "commit"},
+               {"span": "bc_scores", "mode": "unchanged"},
+               {"span": "bc_scores", "mode": "delta",
+                "live_block_share": 0.375}]
+    assert rp.live_block_shares(records, 3) == [0.25, None, 0.375]
+    assert rp.live_block_shares(records, 1) == [0.375]
+    assert rp.live_block_shares(records, 9) == [0.5, 0.25, None, 0.375]
+    assert rp.live_block_shares([], 3) == []

@@ -808,6 +808,48 @@ def test_cuda_lane_segment_sum_matches_single_source(cuda_device, n_edges):
 
 
 @pytest.mark.cuda
+def test_cuda_bc_refresh_under_the_vertex_order_matches_cpu(cuda_device):
+    """``GraphService.bc_scores`` on the card, its sweeps in the hub-first
+    vertex order against a grid of the reordered adjacency, cold and then
+    delta after a commit: levels, sigma and ``ok`` bit-equal to the plain
+    CPU ``bc_batched_dense`` in vertex order, scores within 1e-5."""
+    from repro_torch.core import PUTE, queries as tq
+    from repro_torch.core.graph_state import GraphState
+    from repro_torch.data import load_rmat_graph
+    from repro_torch.engine import GraphService
+    from repro_torch.kernels import count_mm as tcm
+
+    svc = GraphService(load_rmat_graph(1024, 8192, seed=5, weighted=False,
+                                       device="cuda"), batch_size=16)
+    for step in range(2):
+        if step:
+            svc.submit_many([(PUTE, 40 + i, (37 * i) % 1024, 1.0)
+                             for i in range(16)])
+            svc.flush()
+        tcm.reset_launches()
+        scores, _ = svc.bc_scores()
+        assert tcm.LAUNCHES["count_mm_masked"] > 0
+        state = GraphState(*(t.cpu() for t in svc.ring.latest.state))
+        am, _, alive = tq.dense_views(state)
+        if not step:
+            deg = (am & alive).sum(dim=1)
+            assert ((deg == 0) & alive).any() and (~alive).any()
+        delta, sigma, level, ok = tq.bc_batched_dense(
+            am, torch.arange(1024, dtype=torch.int32), alive,
+            use_kernel=False)
+        slot = svc._bc_scores
+        assert torch.equal(slot["level"].cpu(), level)
+        assert torch.equal(slot["sigma"].cpu(), sigma)
+        assert torch.equal(slot["ok"].cpu(), ok)
+        want = torch.where(ok[:, None], delta, 0.0).sum(dim=0)
+        want = torch.where(alive, want, float("nan"))
+        np.testing.assert_allclose(scores.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert svc.bc_scores_stats["full"] == 1
+    assert svc.bc_scores_stats["delta"] == 1
+
+
+@pytest.mark.cuda
 def test_cuda_async_front_end_bit_identical(cuda_device):
     """The front end on the card: the dispatcher's own stream, replies
     equal to sequential queries on both rungs, no pin left."""

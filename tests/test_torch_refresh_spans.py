@@ -1,8 +1,9 @@
 """The spans inside ``GraphService.bc_scores`` and the scheduler's commit on
 the profiler's timeline (``repro_torch.obs.trace``): the ranges a delta
 refresh opens and how they nest, their counts against the ``bc_scores``
-trace record, the commit's children without telemetry, and an off path
-that never enters ``record_function``.  On the card: every device-to-host
+trace record, the record's ``live_block_share`` and the one read it
+costs, the commit's children without telemetry, and an off path that never
+enters ``record_function``.  On the card: every device-to-host
 copy inside a refresh is one ``host_read``."""
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import repro_torch.core.queries as tc_queries
 import repro_torch.obs.trace as ttrace
 from repro_torch.core.updates import PUTE
 from repro_torch.data import load_rmat_graph
@@ -121,6 +123,36 @@ def test_range_counts_equal_the_bc_scores_record():
     (again,) = [r for r in tel.tracer.records[n1:]
                 if r["span"] == "bc_scores"]
     assert again["host_reads"] >= 2 * again["forward_levels"] + 2
+
+
+@pytest.mark.parametrize("mode", ["full", "delta"])
+def test_traced_record_has_live_block_share_and_the_off_path_no_read(mode):
+    """A tracer's ``bc_scores`` record carries the share of live blocks in
+    the grid the products got, read through one ``host_read`` more than
+    the same refresh makes untraced."""
+    tel = Telemetry.make(hlo=False, profile=False)
+    traced, plain = _service(telemetry=tel), _service()
+    if mode == "delta":
+        for svc in (traced, plain):
+            svc.bc_scores()
+            _churn(svc)
+    n0 = len(tel.tracer.records)
+    traced.bc_scores()
+    (rec,) = [r for r in tel.tracer.records[n0:] if r["span"] == "bc_scores"]
+    assert rec["mode"] == mode
+    state = traced.ring.latest.state
+    am, _, alive = tc_queries.dense_views(state)
+    grid = tc_queries.block_occupancy(
+        tc_queries.permute_square(am, tc_queries.bc_vertex_order(am, alive)),
+        tc_queries.ORDER_TILE)
+    assert 0.0 < rec["live_block_share"] <= 1.0
+    assert rec["live_block_share"] == pytest.approx(grid.float().mean())
+    # Untraced, the refresh's reads count on an outer span of a tracer
+    # the service does not know: the refresh's own span is the null span.
+    with ttrace.Tracer().span("outer") as outer:
+        plain.bc_scores()
+    assert plain.bc_scores_stats[mode] == 1
+    assert outer.counts["host_read"] == rec["host_reads"] - 1
 
 
 class _Counting:

@@ -13,7 +13,11 @@ slice's busy time the ``commit`` and ``bc_scores`` ranges hold, every idle
 gap summed by the innermost span open when it began, and the slice's mean
 step against the traced run's window mean.  Then ``--cold`` cold (``full``)
 refreshes on fresh services over the cell's initial graph, read the same
-way, for the delta-against-cold comparison.  Prints one JSON object last.
+way, for the delta-against-cold comparison.  Each refresh's
+``live_block_share`` (the share of the occupancy grid's blocks, in the
+refresh's vertex order, that hold an entry) comes from the ``bc_scores``
+record of a tracer the tool attaches to the service.  Prints one JSON
+object last.
 
 The benchmark's ``Trace`` leaves the program's ``record_function`` ranges
 out; this tool reads them from the same profiler events (``spans_of``).
@@ -180,6 +184,13 @@ def idle_by_span(trace, spans) -> dict:
     return dict(sorted(by.items(), key=lambda kv: -kv[1][0]))
 
 
+def live_block_shares(records, count: int) -> list:
+    """``live_block_share`` of the last ``count`` ``bc_scores`` records of
+    a tracer, oldest first (``None`` for a refresh that swept nothing)."""
+    refreshes = [r for r in records if r["span"] == "bc_scores"]
+    return [r.get("live_block_share") for r in refreshes[-count:]]
+
+
 def coverage(trace, spans) -> float:
     """Device time launched inside the ``commit`` and ``bc_scores`` ranges
     over the slice's busy time."""
@@ -202,6 +213,7 @@ def cold_refreshes(cell, seed: int, count: int) -> list:
 
     from graphbench import graphs, profiling, system, traffic
     from repro_torch.engine import GraphService
+    from repro_torch.obs import Telemetry
 
     cfg = cell.config
     rngs = traffic.streams(seed, cfg["data_seed"])
@@ -215,13 +227,15 @@ def cold_refreshes(cell, seed: int, count: int) -> list:
     for _ in range(count):
         gc.collect()
         torch.cuda.empty_cache()
-        fresh = GraphService(state, **{k: int(v) for k, v in
-                                       cfg["service"].items()})
+        tel = Telemetry.make(hlo=False, profile=False)
+        fresh = GraphService(state, telemetry=tel, **{
+            k: int(v) for k, v in cfg["service"].items()})
         with profiling.Slice() as sl:
             fresh.bc_scores()
         trace, spans = read_slice(sl)
         assert fresh.bc_scores_stats["full"] == 1
         row = phase_split(spans)
+        (row["live_block_share"],) = live_block_shares(tel.tracer.records, 1)
         row["wall_ms"] = trace.window_s * 1e3
         row["busy_ms"] = trace.busy_s * 1e3
         out.append(row)
@@ -239,6 +253,7 @@ def main() -> int:
     import torch
 
     from graphbench import drivers, harness, profiling, spec
+    from repro_torch.obs import Telemetry
 
     if not torch.cuda.is_available():
         sys.exit("refresh_phases: torch.cuda.is_available() is false")
@@ -246,22 +261,31 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     cell = spec.resolve(ROOT, args.workload)
-    slices, runs = [], []
+    steps = int(cell.traffic["trace_steps"])
+    slices, shares, runs = [], [], []
     read = profiling.Slice.read
+    tel = Telemetry.make(hlo=False, profile=False)
 
     def keep(self):
         slices.append(read_slice(self, read))
+        shares.append(live_block_shares(tel.tracer.records, steps))
         return slices[-1][0]
+
+    def traced(ctx):
+        # the refreshes' records, for their live_block_share; the commits'
+        # scheduler was built without telemetry and stays so
+        ctx.svc.telemetry = tel
+        runs.append(drive(ctx))
+        return runs[-1]
 
     kind = cell.traffic["kind"]
     drive = drivers.DRIVERS[kind]
     profiling.Slice.read = keep
-    drivers.DRIVERS[kind] = lambda ctx: runs.append(drive(ctx)) or runs[-1]
+    drivers.DRIVERS[kind] = traced
     out = harness.run_cell(cell, args.seed, args.seconds, trace=True)
     profiling.Slice.read = read
     drivers.DRIVERS[kind] = drive
     trace, spans = slices[0]             # the window's slice
-    steps = int(cell.traffic["trace_steps"])
     result = {
         "card": card, "seed": args.seed, "correct": out["correct"],
         "metrics": {k: v["value"] for k, v in out["metrics"].items()},
@@ -270,6 +294,7 @@ def main() -> int:
         "busy_ms": trace.busy_s * 1e3, "window_ms": trace.window_s * 1e3,
         "coverage": coverage(trace, spans),
         "delta": phase_split(spans),
+        "live_block_share": shares[0],
         "idle_by_span": idle_by_span(trace, spans),
         "idle_gaps": idle_gaps(trace, spans),
     }
