@@ -49,7 +49,7 @@ def refresh_loop(ctx) -> Run:
         if not pending:     # the data's batches, 64 at a time, reordered
             pending.extend(reversed(traffic.update_batches(
                 ctx.rngs.updates, ctx.n, 64, upd, ctx.weights, ctx.hot_base,
-                ctx.rngs.order)))
+                ctx.rngs.order, ctx.cell.root)))
         ops = pending.pop()
         svc.submit_many(ops)
         entries = svc.flush()

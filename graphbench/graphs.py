@@ -1,71 +1,50 @@
 """The deployments' initial graphs, drawn from a seed.
 
-Frozen here, so that a change to the program cannot move the yardstick:
+Frozen under the benchmark's folder, so that a change to the program cannot
+move the yardstick, and found by the names a configuration gives:
 
-  * ``kronecker`` -- the Graph500 specification's Kronecker generator
-    (its reference code: per level a row bit with P(1) = 1 - (A + B) and a
-    column bit conditioned on it), vertex labels permuted, edge order
-    permuted; each undirected edge stored in both directions, self-loops
-    dropped.
+  * ``generators/<generator>.py`` -- ``draw(config, rng, weight)`` returns
+    ``(n, i, j, w)``: the drawn edges ``i -> j`` once each, duplicates and
+    self-loops as drawn, in host arrays;
+  * ``weights/<weights>.py`` -- ``draw(rng, size)``, the edges' weights;
+    the update stream (``streams/<stream>.py``, a traffic mix's) draws an
+    inserted edge's weight the same way.
 
-Edge weights are drawn as the configuration's ``weights`` names
-(``WEIGHTS``); the update stream draws an inserted edge's weight the same
-way.  ``draw`` returns host arrays ``(src, dst, w)`` (int32, int32,
-float32) of the directed entries, duplicates included: the loader keeps
-the last weight of a duplicated key, and the reference does the same.
+What every generator shares is done here: ``self_loops`` ``"dropped"``
+drops them (no other value is taken); ``directed`` ``false`` stores each
+edge in both directions (``[i, j]`` then ``[j, i]``, weights ``[w, w]``),
+``true`` each arc once.  ``draw`` returns host arrays ``(src, dst, w)``
+(int32, int32, float32) of the directed entries, duplicates included: the
+loader keeps the last weight of a duplicated key, and the reference does
+the same.
 """
 from __future__ import annotations
 
 import numpy as np
 
-
-def uniform_01(rng, size: int):
-    """Real weights uniform in [0, 1), the Graph500 specification's."""
-    return rng.random(size).astype(np.float32)
+from . import spec
 
 
-WEIGHTS = {"uniform_01": uniform_01}
-
-
-def weight_draw(config: dict):
+def weight_draw(config: dict, root: str = spec.HOME):
     """The configuration's ``weight(rng, size)`` function."""
-    return WEIGHTS[config["weights"]]
+    return spec.load_module(root, "weights", config["weights"]).draw
 
 
-def kronecker(rng, scale: int, edge_factor: int, a: float, b: float,
-              c: float, weight):
-    n, m = 1 << scale, edge_factor << scale
-    ab = a + b
-    c_norm, a_norm = c / (1.0 - ab), a / ab
-    i = np.zeros(m, np.int64)
-    j = np.zeros(m, np.int64)
-    for level in range(scale):
-        i_bit = rng.random(m) > ab
-        j_bit = rng.random(m) > np.where(i_bit, c_norm, a_norm)
-        i += i_bit.astype(np.int64) << level
-        j += j_bit.astype(np.int64) << level
-    perm = rng.permutation(n)
-    i, j = perm[i], perm[j]
-    order = rng.permutation(m)
-    i, j = i[order], j[order]
-    w = weight(rng, m)
+def draw(config: dict, rng, root: str = spec.HOME):
+    """``(n_vertices, src, dst, w)`` of a configuration's initial graph."""
+    directed, loops = config["directed"], config["self_loops"]
+    if not isinstance(directed, bool):
+        raise ValueError(f"directed must be true or false, not {directed!r}")
+    if loops != "dropped":
+        raise ValueError(f"self_loops must be 'dropped', not {loops!r}")
+    gen = spec.load_module(root, "generators", config["generator"])
+    n, i, j, w = gen.draw(config, rng, weight_draw(config, root))
     keep = i != j
     i, j, w = i[keep], j[keep], w[keep]
-    src = np.concatenate([i, j]).astype(np.int32)
-    dst = np.concatenate([j, i]).astype(np.int32)
-    return src, dst, np.concatenate([w, w])
-
-
-def draw(config: dict, rng):
-    """``(n_vertices, src, dst, w)`` of a configuration's initial graph."""
-    scale = int(config["scale"])
-    gen = config["generator"]
-    if gen != "kronecker":
-        raise ValueError(f"unknown graph generator {gen!r}")
-    src, dst, w = kronecker(rng, scale, int(config["edge_factor"]),
-                            config["a"], config["b"], config["c"],
-                            weight_draw(config))
-    return 1 << scale, src, dst, w
+    if not directed:
+        i, j = np.concatenate([i, j]), np.concatenate([j, i])
+        w = np.concatenate([w, w])
+    return n, i.astype(np.int32), j.astype(np.int32), w.astype(np.float32)
 
 
 def edge_capacity(config: dict, n_entries: int) -> int:

@@ -120,8 +120,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     rngs = traffic.streams(seed, cell.config["data_seed"])
     ctx = Context(cell=cell, seed=seed, seconds=seconds, trace=trace,
                   device=device, rngs=rngs)
-    ctx.n, ctx.src, ctx.dst, ctx.w = graphs.draw(cell.config, rngs.graph)
-    ctx.weights = graphs.weight_draw(cell.config)
+    ctx.n, ctx.src, ctx.dst, ctx.w = graphs.draw(cell.config, rngs.graph,
+                                                 cell.root)
+    ctx.weights = graphs.weight_draw(cell.config, cell.root)
     ctx.hot_base = traffic.hot_base(rngs.hot, ctx.n,
                                     cell.traffic["updates"])
     ecap = graphs.edge_capacity(cell.config, len(ctx.src))

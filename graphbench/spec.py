@@ -1,16 +1,27 @@
-"""Find a cell's configuration, traffic mix, limits and metric readers by name.
+"""Find a cell's files by name.
 
 Nothing here knows a cell: ``BENCHMARK.json`` names them, and each name
-leads to a file of its own under the benchmark's folder.
+leads to a file of its own under the benchmark's folder:
+
+  * ``configs/<config>.json``, ``traffic/<mix>.json``, ``limits/<cell>.json``;
+  * ``generators/<generator>.py``, ``weights/<weights>.py`` -- the
+    ``generator`` and ``weights`` a configuration names;
+  * ``streams/<stream>.py`` -- the ``updates.stream`` a traffic mix names;
+  * ``metrics/<metric>.py`` -- one reader per per-layer metric.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
 from dataclasses import dataclass, field
 
 BENCH_DIR = "graphbench"
+
+#: the checkout this module was imported from: where a lookup without a root
+#: finds its files
+HOME = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def load_json(path: str):
@@ -67,20 +78,30 @@ def limits_path(root: str, cell: str) -> str:
     return os.path.join(root, BENCH_DIR, "limits", f"{cell}.json")
 
 
-def reader_path(root: str, metric: str) -> str:
-    return os.path.join(root, BENCH_DIR, "metrics", f"{metric}.py")
+def module_path(root: str, folder: str, name: str) -> str:
+    """The file ``<folder>/<name>.py`` of the benchmark's folder; raises
+    where there is none."""
+    path = os.path.join(root, BENCH_DIR, folder, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {folder} file for {name!r}: {path}")
+    return path
+
+
+@functools.cache
+def load_module(root: str, folder: str, name: str):
+    """The module ``<folder>/<name>.py``, loaded from its file once a
+    process: the update stream is looked up again inside the window."""
+    path = module_path(root, folder, name)
+    spec = importlib.util.spec_from_file_location(
+        f"graphbench_{folder}_{name.replace('.', '_').replace('-', '_')}",
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(root: str, metric: str):
-    path = reader_path(root, metric)
-    spec = importlib.util.spec_from_file_location(
-        f"graphbench_metric_{metric.replace('.', '_').replace('-', '_')}",
-        path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(root, "metrics", metric).read
 
 
 def resolve(root: str, cell: str) -> Cell:
@@ -91,6 +112,10 @@ def resolve(root: str, cell: str) -> Cell:
     cfg_entry = _by_name(bench["configs"], wl["config"], "config")
     config = load_json(os.path.join(root, cfg_entry["file"]))
     traffic = load_json(traffic_path(root, wl["traffic"]))
+    # the draws' files, so that a cell naming a missing one fails here
+    module_path(root, "generators", config["generator"])
+    module_path(root, "weights", config["weights"])
+    module_path(root, "streams", traffic["updates"]["stream"])
     lim_file = limits_path(root, cell)
     limits = load_json(lim_file) if os.path.exists(lim_file) else {}
     e2e = reported(bench["end_to_end"], cell)

@@ -1,7 +1,11 @@
 """The graph and traffic generators are deterministic per seed, every seed
 offers the same work in another order, the Kronecker graph has the shape
-the Graph500 specification gives it, and the update stream keeps to its
-parameters and draws weights as the deployment does."""
+the Graph500 specification gives it (each edge both ways, or each arc once
+where the configuration says ``directed``), the benchmark's draws are the
+bytes they were when the generator, weight draw and update stream became
+files found by name, and the update stream keeps to its parameters and
+draws weights as the deployment does."""
+import hashlib
 import json
 import os
 
@@ -12,11 +16,11 @@ import gb_tiny
 from graphbench import graphs, traffic
 
 
-def _config(name):
+def _config(name, scale=8):
     with open(os.path.join(gb_tiny.ROOT, "graphbench", "configs",
                            name + ".json")) as f:
         cfg = json.load(f)
-    cfg.update(scale=8)
+    cfg.update(scale=scale)
     return cfg
 
 
@@ -68,6 +72,63 @@ def test_kronecker_is_undirected_without_self_loops():
     # labels permuted: degrees are skewed
     deg = np.bincount(src, minlength=n)
     assert deg.max() > 8 * deg.mean()
+
+
+@pytest.mark.parametrize("seed", [1, gb_tiny.SEED])
+def test_graph500_s14_draws_are_pinned(seed):
+    """The cell's graph, hot set and first 64 batches, at its own scale, as
+    the draws gave them before they were found by name."""
+    cfg = _config("graph500_s14", scale=14)
+    rngs = traffic.streams(seed, 14002)
+    n, src, dst, w = graphs.draw(cfg, rngs.graph)
+    assert n == 16384 and len(src) == 523704
+    assert (src.dtype, dst.dtype, w.dtype) == (np.int32, np.int32,
+                                               np.float32)
+    digest = hashlib.sha256()
+    for a in (src, dst, w):
+        digest.update(a.tobytes())
+    assert digest.hexdigest() == (
+        "f9497a72fca6b1f4e547c8ccdc9422a1091567002ca92a671ee54e2158febe83")
+    p = _mix("bc_refresh")["updates"]
+    base = traffic.hot_base(rngs.hot, n, p)
+    assert base == 460
+    batches = traffic.update_batches(rngs.updates, n, 64, p,
+                                     graphs.weight_draw(cfg), base)
+    assert hashlib.sha256(json.dumps(batches).encode()).hexdigest() == (
+        "a70e3512577b861a177dba3f227ff3047e118c008fe019095f904c179a568b04")
+
+
+def test_kronecker_directed_keeps_each_arc_once():
+    cfg = _config("graph500_s14", scale=7)
+    n, src, dst, w = graphs.draw(cfg, np.random.default_rng(9))
+    cfg["directed"] = True
+    n_d, src_d, dst_d, w_d = graphs.draw(cfg, np.random.default_rng(9))
+    assert n_d == n and 2 * len(src_d) == len(src)
+    m = len(src_d)
+    # the arcs as drawn: the first half of the undirected draw
+    assert np.array_equal(src_d, src[:m]) and np.array_equal(dst_d, dst[:m])
+    assert np.array_equal(w_d, w[:m])
+    assert (src_d != dst_d).all()
+    arcs = set(zip(src_d.tolist(), dst_d.tolist()))
+    assert any((v, u) not in arcs for u, v in arcs)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("directed", "yes"), ("directed", 1), ("self_loops", "sometimes"),
+    ("self_loops", "kept"),
+    ("generator", "no_such_generator"), ("weights", "no_such_weights")])
+def test_an_unknown_shape_is_refused_by_name(key, value):
+    cfg = _config("graph500_s14", scale=4)
+    cfg[key] = value
+    with pytest.raises((ValueError, FileNotFoundError), match=repr(value)):
+        graphs.draw(cfg, np.random.default_rng(0))
+
+
+def test_an_unknown_stream_is_refused_by_name():
+    p = dict(_mix("bc_refresh")["updates"], stream="no_such_stream")
+    with pytest.raises(FileNotFoundError, match="'no_such_stream'"):
+        traffic.update_batches(np.random.default_rng(0), 64, 1, p,
+                               graphs.weight_draw(_config("graph500_s14")))
 
 
 def test_update_stream_keeps_to_its_parameters():

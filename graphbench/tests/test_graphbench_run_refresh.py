@@ -2,7 +2,10 @@
 correct; the control, and the timed path broken underneath (a refresh that
 returns its state unchanged, under the new version or under the old one it
 is exact at, half of the sources left out and the rest counted double, one
-score altered where it is produced), are not."""
+score altered where it is produced), are not.  So is a sound run of a
+directed deployment added as files (``gb_tiny.add_directed_cell``: a
+directed R-MAT, integer weights, arc and vertex churn), and its control
+is not."""
 import pytest
 
 import gb_tiny
@@ -26,6 +29,17 @@ def test_sound_run_is_correct_and_the_control_is_not(root):
     cell, out = _run(root, control=True)
     assert out["correct"], out["checks"]
     assert set(out["metrics"]) == {m["name"] for m in cell.end_to_end}
+    assert out["attempted"] >= 2
+    ok, _ = check.verdict(out["control"], cell.limits)
+    assert not ok, out["control"]
+
+
+def test_directed_cell_is_correct_and_its_control_is_not(tmp_path):
+    root = gb_tiny.make_root(tmp_path)
+    cell = spec.resolve(root, gb_tiny.add_directed_cell(root))
+    out = harness.run_cell(cell, gb_tiny.SEED, SECONDS, trace=False,
+                           device="cpu", control=True)
+    assert out["correct"], out["checks"]
     assert out["attempted"] >= 2
     ok, _ = check.verdict(out["control"], cell.limits)
     assert not ok, out["control"]

@@ -1,6 +1,14 @@
 """Traffic drawn from seeds: update batches, as a traffic file's parameters
 describe them.
 
+A traffic file's ``updates.stream`` names the stream,
+``streams/<stream>.py``, whose ``batches(rng, n, n_batches, p, weight,
+base)`` draws the batches from the parameters ``p`` (the file's
+``updates``), an inserted edge's weight by ``weight(rng, size)`` (the
+configuration's ``weights/<weights>.py``).  The configuration's
+``directed`` governs the initial graph only: a stream's inserts are the
+stream's own.
+
 Every run of a cell offers the same work in another order.  The
 configuration's ``data_seed`` draws the deployment's data: the initial
 graph, the hot set and the update batches.  The run's ``--seed`` draws the
@@ -16,6 +24,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from . import spec
 
 NOP, PUTV, REMV, PUTE, REME = 0, 1, 2, 3, 4
 
@@ -57,30 +67,9 @@ def hot_base(rng, n: int, p: dict) -> int:
     return int(rng.integers(0, max(1, n - hot_size(n, p))))
 
 
-def hot_churn(rng, n: int, n_batches: int, p: dict, weight, base: int):
-    """Edge churn on the contiguous hot set of ``hot_frac * n`` sources at
-    ``base``: ``pute_share`` PutE, the rest RemE, the other endpoint uniform
-    (``chip_smoke.commit_stream``'s draw); an inserted edge's weight is
-    drawn as the deployment draws its edges' (``weight(rng, size)``)."""
-    size = hot_size(n, p)
-    out = []
-    for _ in range(n_batches):
-        ops = []
-        for _ in range(int(p["ops_per_batch"])):
-            u = base + int(rng.integers(0, size))
-            v = int(rng.integers(0, n))
-            if rng.random() < p["pute_share"]:
-                ops.append((PUTE, u, v, float(weight(rng, 1)[0])))
-            else:
-                ops.append((REME, u, v))
-        out.append(ops)
-    return out
-
-
-UPDATE_STREAMS = {"hot_churn": hot_churn}
-
-
 def update_batches(rng, n: int, n_batches: int, p: dict, weight,
-                   base: int = 0, order=None):
-    return permuted(UPDATE_STREAMS[p["stream"]](rng, n, n_batches, p, weight,
-                                                base), order)
+                   base: int = 0, order=None, root: str = spec.HOME):
+    """``n_batches`` batches of the stream ``p["stream"]`` names
+    (``streams/<stream>.py``'s ``batches``), in the order ``order`` draws."""
+    stream = spec.load_module(root, "streams", p["stream"])
+    return permuted(stream.batches(rng, n, n_batches, p, weight, base), order)
