@@ -29,7 +29,9 @@ counts in ``scheduler_stragglers`` and marks its trace span
 ``straggler=True``.
 
 A commit runs in a ``commit`` span with the children ``commit.apply``
-(``apply_ops``) and ``commit.ring`` (the ring append): trace records with
+(``apply_ops``) and ``commit.ring`` (the ring append); a tracer's ``commit``
+record counts the chunk's ops by kind (``putv``, ``remv``, ``pute``,
+``reme``) from its host tuples.  The spans are trace records with
 telemetry, ``torch.profiler`` ranges while the profiler records, with or
 without it (``repro_torch.obs.trace``).
 
@@ -51,6 +53,19 @@ from .version_ring import RingEntry, VersionRing
 
 _VERTEX_OPS = (PUTV, REMV)
 _EDGE_OPS = (PUTE, REME)
+#: a traced commit's record counts its chunk's ops of each kind
+_OP_FIELDS = {PUTV: "putv", REMV: "remv", PUTE: "pute", REME: "reme"}
+
+
+def _op_counts(ops) -> dict:
+    """``{putv, remv, pute, reme}``: the ops of each kind among the host
+    tuples ``ops`` (NOPs and unknown kinds are not counted)."""
+    counts = dict.fromkeys(_OP_FIELDS.values(), 0)
+    for op in ops:
+        name = _OP_FIELDS.get(op[0])
+        if name is not None:
+            counts[name] += 1
+    return counts
 
 
 class SchedulerStats(CounterStruct):
@@ -154,6 +169,8 @@ class StreamScheduler:
         try:
             with maybe_span(tracer, "commit", batch_ops=n_raw,
                             coalesced=n_raw - len(ops)) as sp:
+                if sp.id is not None:   # a tracer's span: no device read
+                    sp.set(**_op_counts(chunk))
                 if mon is not None:
                     mon.start()
                 with maybe_span(tracer, "commit.apply"):

@@ -126,6 +126,36 @@ def _set_counts(sp) -> None:
            host_reads=sp.counts.get(HOST_READ, 0))
 
 
+def _sweep_fields(amask, alive, cut, prior_ok) -> dict:
+    """A traced refresh's record fields, read in one ``host_read``:
+
+      * ``live_block_share``: the share of the occupancy grid's blocks,
+        in the refresh's vertex order, that hold an entry;
+      * ``dead``: vertices not alive at the version;
+      * ``revived_rows``: sources restarted because they were revived (alive
+        now, with an empty prior tree);
+      * ``cold_rows``: source rows the sweep restarts from level 0: a cut
+        of 0 (a source that died), the revived ones, and every row of a
+        cold refresh (``cut`` ``None``);
+      * ``reused_rows``: live sources whose whole prior tree is kept (no
+        dirty vertex in it: a cut past every level).
+    """
+    vcap = alive.shape[0]
+    if cut is None:
+        cut = torch.zeros_like(alive, dtype=torch.int32)
+        revived = torch.zeros_like(alive)
+    else:
+        revived = alive & ~prior_ok
+        cut = torch.where(revived, 0, cut)
+    counts = torch.stack([(~alive).sum(), revived.sum(), (cut == 0).sum(),
+                          (alive & (cut > vcap)).sum()]).double()
+    share, *rows = host_read(torch.Tensor.tolist, torch.cat(
+        [amask.float().mean().double()[None], counts]))
+    dead, revived_rows, cold_rows, reused_rows = (int(x) for x in rows)
+    return dict(live_block_share=share, dead=dead, revived_rows=revived_rows,
+                cold_rows=cold_rows, reused_rows=reused_rows)
+
+
 class ServiceStats(CounterStruct):
     """Per-query mode tallies: unchanged + delta + full == queries (a cn
     query is counted once, by its final collect's mode).
@@ -776,8 +806,8 @@ class GraphService(BaseGraphService):
 
         A refresh runs in a ``bc_scores`` span (its record: ``mode``,
         ``version``, ``n_dirty``, ``forward_levels``, ``backward_levels``,
-        ``host_reads``, and, where it swept, ``live_block_share``: the
-        share of the grid's blocks that hold an entry, read only for a
+        ``host_reads``, and, where it swept, the fields of
+        ``_sweep_fields``, read in one ``host_read`` and only for a
         tracer's record) whose children are its phases: ``bc_scores.plan``,
         ``tile_refresh``, ``bc_scores.operands``, ``bc_scores.forward`` /
         ``bc_scores.backward`` (one ``*_level`` child per counting product,
@@ -840,6 +870,9 @@ class GraphService(BaseGraphService):
             amask = queries.block_occupancy(adj_mask, queries.ORDER_TILE)
             srcs = torch.arange(state.vcap, dtype=torch.int32,
                                 device=state.device)
+            if sp.id is not None:   # a tracer's span: read for its record
+                sp.set(**_sweep_fields(amask, alive, warm.get("cut"),
+                                       slot["ok"] if warm else None))
             if warm:
                 warm = dict(
                     prior_level=queries.permute_square(warm["prior_level"],
@@ -847,9 +880,6 @@ class GraphService(BaseGraphService):
                     prior_sigma=queries.permute_square(warm["prior_sigma"],
                                                        order),
                     cut=warm["cut"][order])
-            if sp.id is not None:   # a tracer's span: read for its record
-                sp.set(live_block_share=host_read(
-                    float, amask.float().mean()))
         delta, sigma, level, ok = queries.bc_batched_dense(
             adj_mask, srcs, alive[order], use_kernel=use_kernel, amask=amask,
             tile=queries.ORDER_TILE, src_chunk=src_chunk, **warm)

@@ -2,8 +2,9 @@
 device operation counts in the spans open at its launch, matched by
 correlation id; the phase split of a slice per refresh that swept and per
 commit; the idle gaps named by the span open when they began; and the
-share of the busy time the spans hold; each refresh's ``live_block_share``
-from a tracer's records."""
+share of the busy time the spans hold; each refresh's ``live_block_share``,
+dead vertices and source rows, and each commit's ops by kind, from a
+tracer's records."""
 import importlib.util
 import os
 from types import SimpleNamespace
@@ -217,7 +218,41 @@ def test_live_block_shares_of_the_last_refreshes_oldest_first():
                {"span": "bc_scores", "mode": "unchanged"},
                {"span": "bc_scores", "mode": "delta",
                 "live_block_share": 0.375}]
-    assert rp.live_block_shares(records, 3) == [0.25, None, 0.375]
-    assert rp.live_block_shares(records, 1) == [0.375]
-    assert rp.live_block_shares(records, 9) == [0.5, 0.25, None, 0.375]
-    assert rp.live_block_shares([], 3) == []
+    def shares(recs, count):
+        return [r["live_block_share"] for r in rp.last_records(
+            recs, "bc_scores", count, ("live_block_share",))]
+
+    assert shares(records, 3) == [0.25, None, 0.375]
+    assert shares(records, 1) == [0.375]
+    assert shares(records, 9) == [0.5, 0.25, None, 0.375]
+    assert shares([], 3) == []
+
+
+def test_last_records_give_each_refresh_and_commit_its_fields():
+    """The fields the tool prints per refresh (``RECORD_FIELDS``) and per
+    commit (``COMMIT_FIELDS``), from the last records of each span, oldest
+    first; ``None`` where a record lacks one."""
+    records = [{"span": "commit", "putv": 1, "remv": 2, "pute": 3,
+                "reme": 4},
+               {"span": "bc_scores", "mode": "full", "live_block_share": 0.5,
+                "dead": 9, "revived_rows": 0, "cold_rows": 64,
+                "reused_rows": 0},
+               {"span": "commit", "putv": 0, "remv": 6, "pute": 0,
+                "reme": 0, "version": 2},
+               {"span": "bc_scores.forward"},
+               {"span": "bc_scores", "mode": "unchanged"},
+               {"span": "bc_scores", "mode": "delta",
+                "live_block_share": 0.25, "dead": 15, "revived_rows": 1,
+                "cold_rows": 7, "reused_rows": 40, "n_dirty": 12}]
+    assert rp.RECORD_FIELDS == ("mode", "live_block_share", "dead",
+                                "revived_rows", "cold_rows", "reused_rows")
+    assert rp.COMMIT_FIELDS == ("putv", "remv", "pute", "reme")
+    refreshes = rp.last_records(records, "bc_scores", 2, rp.RECORD_FIELDS)
+    assert refreshes == [
+        dict.fromkeys(rp.RECORD_FIELDS) | {"mode": "unchanged"},
+        {"mode": "delta", "live_block_share": 0.25, "dead": 15,
+         "revived_rows": 1, "cold_rows": 7, "reused_rows": 40}]
+    commits = rp.last_records(records, "commit", 3, rp.COMMIT_FIELDS)
+    assert commits == [{"putv": 1, "remv": 2, "pute": 3, "reme": 4},
+                       {"putv": 0, "remv": 6, "pute": 0, "reme": 0}]
+    assert rp.last_records([], "commit", 3, rp.COMMIT_FIELDS) == []

@@ -1,9 +1,10 @@
 """The spans inside ``GraphService.bc_scores`` and the scheduler's commit on
 the profiler's timeline (``repro_torch.obs.trace``): the ranges a delta
 refresh opens and how they nest, their counts against the ``bc_scores``
-trace record, the record's ``live_block_share`` and the one read it
-costs, the commit's children without telemetry, and an off path that never
-enters ``record_function``.  On the card: every device-to-host
+trace record, the record's ``live_block_share``, dead vertices and source
+rows (revived, cold, reused) and the one read they cost, a traced commit's
+ops by kind, the commit's children without telemetry, and an off path that
+never enters ``record_function``.  On the card: every device-to-host
 copy inside a refresh is one ``host_read``."""
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import repro_torch.core.queries as tc_queries
 import repro_torch.obs.trace as ttrace
-from repro_torch.core.updates import PUTE
+from repro_torch.core.updates import PUTE, REMV
 from repro_torch.data import load_rmat_graph
 from repro_torch.engine import GraphService
 from repro_torch.obs import Telemetry
@@ -153,6 +154,58 @@ def test_traced_record_has_live_block_share_and_the_off_path_no_read(mode):
         plain.bc_scores()
     assert plain.bc_scores_stats[mode] == 1
     assert outer.counts["host_read"] == rec["host_reads"] - 1
+
+
+@pytest.mark.parametrize("mode", ["full", "delta"])
+def test_traced_record_counts_dead_vertices_and_source_rows(mode):
+    """A tracer's ``bc_scores`` record: ``dead``, the vertices not alive;
+    ``revived_rows``, ``cold_rows`` and ``reused_rows``, the source rows
+    the sweep restarts because they were revived, restarts from level 0,
+    and keeps whole.  A cold refresh restarts every row; here a delta one
+    follows edge puts and the removal of one vertex: that source's row
+    restarts, none is revived, and a live source's tree is kept where it
+    holds no dirty vertex."""
+    tel = Telemetry.make(hlo=False, profile=False)
+    svc = _service(telemetry=tel)
+    prior = None
+    if mode == "delta":
+        svc.bc_scores()
+        prior = svc._bc_scores["level"]
+        svc.submit((REMV, 200))
+        _churn(svc)
+    n0 = len(tel.tracer.records)
+    svc.bc_scores()
+    (rec,) = [r for r in tel.tracer.records[n0:] if r["span"] == "bc_scores"]
+    assert rec["mode"] == mode
+    alive = svc.ring.latest.state.alive
+    assert rec["dead"] == int((~alive).sum())
+    if mode == "full":
+        assert (rec["revived_rows"], rec["cold_rows"],
+                rec["reused_rows"]) == (0, N, 0)
+        return
+    dirty = svc.ring.dirty_between(0, 1)
+    kept = alive & ~((prior >= 0) & dirty[None, :]).any(dim=1)
+    assert (rec["dead"], rec["revived_rows"], rec["cold_rows"]) == (1, 0, 1)
+    assert rec["reused_rows"] == int(kept.sum())
+    assert 0 < rec["reused_rows"] < int(alive.sum())
+
+
+def test_traced_commit_record_counts_its_ops_by_kind():
+    """A tracer's ``commit`` record counts the chunk's ops of each kind
+    from the host tuples."""
+    from repro_torch.core.updates import PUTV, REME
+
+    tel = Telemetry.make(hlo=False, profile=False)
+    svc = _service(telemetry=tel)
+    ops = [(PUTV, 3), (PUTE, 1, 2, 0.5), (REME, 4, 5), (REMV, 7),
+           (PUTE, 6, 9, 1.5), (REMV, 8)]
+    n0 = len(tel.tracer.records)
+    svc.submit_many(ops)
+    svc.flush()
+    (rec,) = [r for r in tel.tracer.records[n0:] if r["span"] == "commit"]
+    assert rec["batch_ops"] == len(ops)
+    assert {k: rec[k] for k in ("putv", "remv", "pute", "reme")} == {
+        "putv": 1, "remv": 2, "pute": 2, "reme": 1}
 
 
 class _Counting:

@@ -57,11 +57,17 @@ def _port_only(span: str) -> bool:
             or span.startswith(("bc_scores.", "commit.")))
 
 
+#: the fields the port adds to a record the reference also writes: a
+#: traced commit's ops by kind
+_PORT_FIELDS = {"commit": ("putv", "remv", "pute", "reme")}
+
+
 def _as_reference_numbers(records):
     """The port's records with its own spans folded away: a folded span's
     children hang from its parent, and ids are renumbered in the order the
     spans opened, as a tracer that never opened the folded spans numbers
-    them."""
+    them.  The port's own fields of a shared record (``_PORT_FIELDS``)
+    are left out too."""
     parent = {r["id"]: r["parent"] for r in records}
     folded = {r["id"] for r in records if _port_only(r["span"])}
     kept = [r for r in records if r["id"] not in folded]
@@ -72,7 +78,11 @@ def _as_reference_numbers(records):
             i = parent[i]
         return None if i is None else rank[i]
 
-    return [dict(r, id=rank[r["id"]], parent=outer(r["parent"]))
+    def shared(r):
+        return {k: v for k, v in r.items()
+                if k not in _PORT_FIELDS.get(r["span"], ())}
+
+    return [dict(shared(r), id=rank[r["id"]], parent=outer(r["parent"]))
             for r in kept]
 #: thresholds a recovered service must resume from, not the defaults.
 LEARNED = {"bfs": 0.4, "sssp": 0.1, "bc": 0.02}

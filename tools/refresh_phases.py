@@ -13,11 +13,13 @@ slice's busy time the ``commit`` and ``bc_scores`` ranges hold, every idle
 gap summed by the innermost span open when it began, and the slice's mean
 step against the traced run's window mean.  Then ``--cold`` cold (``full``)
 refreshes on fresh services over the cell's initial graph, read the same
-way, for the delta-against-cold comparison.  Each refresh's
-``live_block_share`` (the share of the occupancy grid's blocks, in the
-refresh's vertex order, that hold an entry) comes from the ``bc_scores``
-record of a tracer the tool attaches to the service.  Prints one JSON
-object last.
+way, for the delta-against-cold comparison.  Each refresh's record fields
+(``RECORD_FIELDS``: ``live_block_share``, the share of the occupancy
+grid's blocks, in the refresh's vertex order, that hold an entry; the dead
+vertices; the source rows revived, restarted cold and reused whole) and
+each commit's ops by kind (``COMMIT_FIELDS``) come from the ``bc_scores``
+and ``commit`` records of a tracer the tool attaches to the service and
+its scheduler.  Prints one JSON object last.
 
 The benchmark's ``Trace`` leaves the program's ``record_function`` ranges
 out; this tool reads them from the same profiler events (``spans_of``).
@@ -43,6 +45,11 @@ COMMIT = ("commit.apply", "commit.ring")
 HOST_READ = "host_read"
 #: a refresh that ran a sweep holds this span (an unchanged one holds none)
 SWEEP = "bc_scores.forward"
+#: a ``bc_scores`` record's fields printed per refresh
+RECORD_FIELDS = ("mode", "live_block_share", "dead", "revived_rows",
+                 "cold_rows", "reused_rows")
+#: a ``commit`` record's ops by kind, printed per commit
+COMMIT_FIELDS = ("putv", "remv", "pute", "reme")
 
 
 class Span(NamedTuple):
@@ -184,11 +191,12 @@ def idle_by_span(trace, spans) -> dict:
     return dict(sorted(by.items(), key=lambda kv: -kv[1][0]))
 
 
-def live_block_shares(records, count: int) -> list:
-    """``live_block_share`` of the last ``count`` ``bc_scores`` records of
-    a tracer, oldest first (``None`` for a refresh that swept nothing)."""
-    refreshes = [r for r in records if r["span"] == "bc_scores"]
-    return [r.get("live_block_share") for r in refreshes[-count:]]
+def last_records(records, span: str, count: int, fields) -> list:
+    """``fields`` of the last ``count`` records of ``span`` of a tracer,
+    oldest first, ``None`` where a record lacks one (a refresh that swept
+    nothing has no ``live_block_share``)."""
+    mine = [r for r in records if r["span"] == span]
+    return [{k: r.get(k) for k in fields} for r in mine[-count:]]
 
 
 def coverage(trace, spans) -> float:
@@ -217,7 +225,7 @@ def cold_refreshes(cell, seed: int, count: int) -> list:
 
     cfg = cell.config
     rngs = traffic.streams(seed, cfg["data_seed"])
-    n, src, dst, w = graphs.draw(cfg, rngs.graph)
+    n, src, dst, w = graphs.draw(cfg, rngs.graph, cell.root)
     svc = system.build(cfg, n, src, dst, w,
                        graphs.edge_capacity(cfg, len(src)), "cuda")
     svc.bc_scores()                      # builds or loads the kernel
@@ -235,7 +243,9 @@ def cold_refreshes(cell, seed: int, count: int) -> list:
         trace, spans = read_slice(sl)
         assert fresh.bc_scores_stats["full"] == 1
         row = phase_split(spans)
-        (row["live_block_share"],) = live_block_shares(tel.tracer.records, 1)
+        (fields,) = last_records(tel.tracer.records, "bc_scores", 1,
+                                 RECORD_FIELDS)
+        row.update(fields)
         row["wall_ms"] = trace.window_s * 1e3
         row["busy_ms"] = trace.busy_s * 1e3
         out.append(row)
@@ -262,19 +272,24 @@ def main() -> int:
                           text=True).stdout.strip()
     cell = spec.resolve(ROOT, args.workload)
     steps = int(cell.traffic["trace_steps"])
-    slices, shares, runs = [], [], []
+    slices, records, runs = [], [], []
     read = profiling.Slice.read
     tel = Telemetry.make(hlo=False, profile=False)
 
     def keep(self):
         slices.append(read_slice(self, read))
-        shares.append(live_block_shares(tel.tracer.records, steps))
+        records.append({
+            "refreshes": last_records(tel.tracer.records, "bc_scores",
+                                      steps, RECORD_FIELDS),
+            "commits": last_records(tel.tracer.records, "commit", steps,
+                                    COMMIT_FIELDS)})
         return slices[-1][0]
 
     def traced(ctx):
-        # the refreshes' records, for their live_block_share; the commits'
-        # scheduler was built without telemetry and stays so
+        # the refreshes' and the commits' records, for their fields: a
+        # tracer on the service and on its scheduler
         ctx.svc.telemetry = tel
+        ctx.svc.scheduler.telemetry = tel
         runs.append(drive(ctx))
         return runs[-1]
 
@@ -294,7 +309,7 @@ def main() -> int:
         "busy_ms": trace.busy_s * 1e3, "window_ms": trace.window_s * 1e3,
         "coverage": coverage(trace, spans),
         "delta": phase_split(spans),
-        "live_block_share": shares[0],
+        **records[0],
         "idle_by_span": idle_by_span(trace, spans),
         "idle_gaps": idle_gaps(trace, spans),
     }
