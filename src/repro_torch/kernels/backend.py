@@ -62,14 +62,16 @@ def check_operands(name: str, x: torch.Tensor, a: torch.Tensor,
     return m, kdim, n
 
 
-def check_masks(name: str, xmask: torch.Tensor, amask: torch.Tensor,
+def check_masks(name: str, xmask: torch.Tensor | None, amask: torch.Tensor,
                 grid) -> None:
     """The masked kernels' block masks must match the block grid
-    ``(m / BM, n / BN, k / BK)``."""
-    if (tuple(xmask.shape) != (grid[0], grid[2])
-            or tuple(amask.shape) != (grid[2], grid[1])):
+    ``(m / BM, n / BN, k / BK)`` (``xmask=None``: the kernel finds the
+    left operand's own)."""
+    xshape = (grid[0], grid[2]) if xmask is None else tuple(xmask.shape)
+    if xshape != (grid[0], grid[2]) or tuple(amask.shape) != (grid[2],
+                                                              grid[1]):
         raise ValueError(
-            f"{name}: mask shapes {tuple(xmask.shape)}/"
+            f"{name}: mask shapes {xshape}/"
             f"{tuple(amask.shape)} do not match the block grid "
             f"({grid[0]}, {grid[2]})/({grid[2]}, {grid[1]})")
 

@@ -50,14 +50,20 @@
 // the stage and adds them into its 64 f32 accumulators by round-to-nearest
 // (the tensor cores' own adds round toward zero; see the consumer).  The
 // split kernel records which 128 x 64 slabs of s have a nonzero mid or lo
-// piece; a k-step loads and multiplies only those planes (counts below
-// 256 are hi alone, so the forward sweep mostly runs one product, not
-// three).  The masked form reads the same smask[m / 128, k / 64] and
-// amask[k / 64, n / 128] in the producer and the consumers and skips the
-// loads and the wgmmas of a dead k-step together; both tests are uniform
-// across the CTA.  The accumulator starts at zero and is always written,
-// so a fully skipped tile is zeros.  The grid runs the row blocks fastest,
-// so the CTAs on the card at once share their a columns in L2.
+// piece, and which have any nonzero entry; a k-step loads and multiplies
+// only the planes it needs (counts below 256 are hi alone, so the forward
+// sweep mostly runs one product, not three).  At its start the CTA's
+// warps read its row of those flags, one k-step per lane, into bitmaps in
+// shared memory: which k-steps have a mid and a lo piece, and which are
+// live.  In the masked form a k-step is live where the slab of s holds a
+// nonzero entry, amask[k / 64, n / 128] is set and the caller's
+// smask[m / 128, k / 64], where given, is set too; the dense form takes
+// every k-step.  The producer and the consumers then walk the live bits
+// in the same ascending order, so no mask is read inside the ring and a
+// dead k-step costs nothing.  The accumulator starts at zero and is always
+// written, so a tile with no live k-step is zeros.  The grid runs the row
+// blocks fastest, so the CTAs on the card at once share their a columns
+// in L2.
 
 #include <cuda_bf16.h>
 
@@ -72,21 +78,29 @@ constexpr int THREADS = 288;        // two consumer warpgroups + a producer warp
 constexpr int TILE = BM * BK * 2;   // bytes of one 128 x 64 bf16 tile
 constexpr int X_PLANES = 3;
 
+constexpr size_t SMEM_MAX = 232448;  // what a block may use on an H100
+
+// The ring, its alignment slack and barriers; the three bitmaps of k-steps
+// (live, mid, lo: one bit per k-step, ceil(k / BK / 32) words each) follow.
 template <int kPA>
 struct Cfg {
   static constexpr int kStages = kPA == 1 ? 3 : 2;
   static constexpr int kStageBytes = (X_PLANES + kPA) * TILE;
-  static constexpr size_t kSmem =
+  static constexpr size_t kRing =
       (size_t)kStages * kStageBytes + 1024 + 2 * kStages * sizeof(uint64_t);
+  static size_t smem(int k) {
+    return kRing + 3 * sizeof(uint32_t) * ((k / BK + 31) / 32);
+  }
 };
 
 // The truncation split of s [m][k] (m % BM == 0, k % BK == 0) into
-// planes[3][m][k], and live[p - 1][m / BM][k / BK] |= 1 for each slab whose
-// piece p (1 = mid, 2 = lo) has a nonzero entry (live is zeroed first).
-// A half-warp's 64 elements lie in one slab, so one atomic per half-warp.
+// planes[3][m][k], and flags[f][m / BM][k / BK] |= 1 for each slab that
+// has a nonzero mid piece (f = 0), lo piece (f = 1) or entry (f = 2:
+// x != 0, so -0 is no entry; flags is zeroed first).  A half-warp's 64
+// elements lie in one slab, so one atomic per flag and half-warp.
 __global__ void split3_kernel(const float4* __restrict__ s,
                               __nv_bfloat16* __restrict__ planes,
-                              int32_t* __restrict__ live, int k,
+                              int32_t* __restrict__ flags, int k,
                               long long n4, int nbk, int nbm) {
   const long long n = 4 * n4;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -94,9 +108,10 @@ __global__ void split3_kernel(const float4* __restrict__ s,
     const float4 v = s[i];
     const float x[4] = {v.x, v.y, v.z, v.w};
     __nv_bfloat16 p[3][4];
-    bool nz_mid = false, nz_lo = false;
+    bool nz_mid = false, nz_lo = false, nz_any = false;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
+      nz_any |= (__float_as_uint(x[e]) & 0x7FFFFFFFu) != 0;
       const uint32_t hb = __float_as_uint(x[e]) & 0xFFFF0000u;
       const float r = x[e] - __uint_as_float(hb);      // exact
       const uint32_t mb = __float_as_uint(r) & 0xFFFF0000u;
@@ -111,14 +126,17 @@ __global__ void split3_kernel(const float4* __restrict__ s,
     // of a warp runs the same iterations.
     const unsigned mid_lanes = __ballot_sync(0xffffffffu, nz_mid);
     const unsigned lo_lanes = __ballot_sync(0xffffffffu, nz_lo);
+    const unsigned any_lanes = __ballot_sync(0xffffffffu, nz_any);
     if (threadIdx.x % 16 == 0) {
       const int shift = threadIdx.x % 32;  // this half-warp's 16 lanes
       const long long e0 = 4 * i;
       const size_t slab =
           (size_t)(e0 / k / BM) * nbk + (size_t)(e0 % k / BK);
-      if ((mid_lanes >> shift) & 0xFFFFu) atomicOr(&live[slab], 1);
-      if ((lo_lanes >> shift) & 0xFFFFu)
-        atomicOr(&live[(size_t)nbm * nbk + slab], 1);
+      const size_t plane = (size_t)nbm * nbk;
+      if ((mid_lanes >> shift) & 0xFFFFu) atomicOr(&flags[slab], 1);
+      if ((lo_lanes >> shift) & 0xFFFFu) atomicOr(&flags[plane + slab], 1);
+      if ((any_lanes >> shift) & 0xFFFFu)
+        atomicOr(&flags[2 * plane + slab], 1);
     }
 #pragma unroll
     for (int pl = 0; pl < 3; ++pl) {
@@ -134,9 +152,11 @@ template <int kPA, bool kMasked>
 __global__ void __launch_bounds__(THREADS, 1)
 count_mm_kernel(const __grid_constant__ CUtensorMap tx,
                 const __grid_constant__ CUtensorMap ta,
-                float* __restrict__ out, const int32_t* __restrict__ xlive,
+                float* __restrict__ out, const int32_t* __restrict__ xflags,
                 const int32_t* __restrict__ smask,
-                const int32_t* __restrict__ amask, int m, int k, int n) {
+                const int32_t* __restrict__ amask,
+                unsigned long long* __restrict__ tally, int m, int k,
+                int n) {
   using C = Cfg<kPA>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -154,6 +174,10 @@ count_mm_kernel(const __grid_constant__ CUtensorMap tx,
   const int bj = blockIdx.y;          // column block
   const int nbk = k / BK;
   const int nbn = n / BN;
+  const int nwords = (nbk + 31) / 32;
+  uint32_t* live_bits = reinterpret_cast<uint32_t*>(empty + C::kStages);
+  uint32_t* mid_bits = live_bits + nwords;
+  uint32_t* lo_bits = mid_bits + nwords;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
@@ -162,46 +186,76 @@ count_mm_kernel(const __grid_constant__ CUtensorMap tx,
     }
     hopper::fence_barrier_init();
   }
+  // Bit kb % 32 of word kb / 32: k-step kb is live for this tile, or the
+  // slab of s at (bi, kb) has a nonzero mid or lo piece (plane 0 is always
+  // taken; a dead plane's terms add exact zeros, so they are neither
+  // loaded nor multiplied).  Every warp takes whole words, one k-step per
+  // lane, so the flags and masks are read once, in parallel, before the
+  // ring starts, and never inside it.
+  const size_t plane = (size_t)(m / BM) * nbk;
+  const int32_t* xrow = xflags + (size_t)bi * nbk;
+  for (int w = threadIdx.x / 32; w < nwords; w += THREADS / 32) {
+    const int kb = 32 * w + threadIdx.x % 32;
+    bool on = false, mid = false, lo = false;
+    if (kb < nbk) {
+      mid = xrow[kb] != 0;
+      lo = xrow[plane + kb] != 0;
+      on = !kMasked || ((xrow[2 * plane + kb] != 0) &
+                        (smask == nullptr ||
+                         smask[(size_t)bi * nbk + kb] != 0) &
+                        (amask[(size_t)kb * nbn + bj] != 0));
+    }
+    const uint32_t on_bits = __ballot_sync(0xffffffffu, on);
+    const uint32_t mid_lanes = __ballot_sync(0xffffffffu, mid);
+    const uint32_t lo_lanes = __ballot_sync(0xffffffffu, lo);
+    if (threadIdx.x % 32 == 0) {
+      live_bits[w] = on_bits;
+      mid_bits[w] = mid_lanes;
+      lo_bits[w] = lo_lanes;
+    }
+  }
   __syncthreads();
 
-  auto live = [&](int kb) {
-    return !kMasked || (smask[(size_t)bi * nbk + kb] != 0 &&
-                        amask[(size_t)kb * nbn + bj] != 0);
-  };
-  // Bit i of the result: plane i of s has a nonzero entry in the slab of
-  // k-step kb (plane 0 is always taken).  A dead plane's terms add exact
-  // zeros, so they are neither loaded nor multiplied.
-  const size_t plane_stride = (size_t)(m / BM) * nbk;
-  auto planes_of = [&](int kb) {
-    const size_t slab = (size_t)bi * nbk + kb;
-    return 1 | (xlive[slab] != 0) << 1 | (xlive[plane_stride + slab] != 0)
-                                             << 2;
+  // The planes of s that k-step 32 w + b needs: bit i for plane i.
+  auto planes_of = [](uint32_t mid, uint32_t lo, int b) {
+    return 1 | (int)((mid >> b) & 1) << 1 | (int)((lo >> b) & 1) << 2;
   };
 
   if (wg == 2) {  // the producer warp
     if (tid != 0) return;
     int stage = 0;
     uint32_t phase = 0;
-    for (int kb = 0; kb < nbk; ++kb) {
-      if (!live(kb)) continue;
-      const int xp = planes_of(kb);
-      hopper::mbar_wait(&empty[stage], phase ^ 1);
-      hopper::mbar_expect_tx(&full[stage],
-                             (__popc(xp) + kPA) * TILE);
-      uint8_t* base = smem + stage * C::kStageBytes;
+    unsigned long long steps = 0;
+    for (int w = 0; w < nwords; ++w) {
+      const uint32_t mid = mid_bits[w], lo = lo_bits[w];
+      for (uint32_t bits = live_bits[w]; bits != 0; bits &= bits - 1) {
+        const int b = __ffs(bits) - 1;
+        const int kb = 32 * w + b;
+        const int xp = planes_of(mid, lo, b);
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&full[stage],
+                               (__popc(xp) + kPA) * TILE);
+        uint8_t* base = smem + stage * C::kStageBytes;
 #pragma unroll
-      for (int i = 0; i < X_PLANES; ++i)
-        if ((xp >> i) & 1)
-          hopper::tma_load_3d(base + i * TILE, &tx, &full[stage], kb * BK,
-                              bi * BM, i);
+        for (int i = 0; i < X_PLANES; ++i)
+          if ((xp >> i) & 1)
+            hopper::tma_load_3d(base + i * TILE, &tx, &full[stage], kb * BK,
+                                bi * BM, i);
 #pragma unroll
-      for (int j = 0; j < kPA; ++j)
-        hopper::tma_load_3d(base + (X_PLANES + j) * TILE, &ta, &full[stage],
-                            kb * BK, bj * BN, j);
-      if (++stage == C::kStages) {
-        stage = 0;
-        phase ^= 1;
+        for (int j = 0; j < kPA; ++j)
+          hopper::tma_load_3d(base + (X_PLANES + j) * TILE, &ta,
+                              &full[stage], kb * BK, bj * BN, j);
+        if (++stage == C::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        ++steps;
       }
+    }
+    // The tally of live (k-step, tile) pairs and of tiles with none.
+    if (kMasked && tally != nullptr) {
+      atomicAdd(&tally[0], steps);
+      if (steps == 0) atomicAdd(&tally[1], 1ull);
     }
     return;
   }
@@ -217,43 +271,48 @@ count_mm_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
+  // The live k-steps in the producer's order, and each one's planes, read
+  // from the bitmaps.  Broadcast from lane 0, so that the compiler sees
+  // the loops and branches around the wgmmas as uniform.
   int stage = 0;
   uint32_t phase = 0;
-  for (int kb = 0; kb < nbk; ++kb) {
-    if (!live(kb)) continue;
-    // Broadcast from lane 0, so that the compiler sees the branches around
-    // the wgmmas as uniform.
-    const int xp = __shfl_sync(0xffffffffu, planes_of(kb), 0);
-    hopper::mbar_wait(&full[stage], phase);
-    const uint32_t base = hopper::smem_u32(smem + stage * C::kStageBytes);
+  for (int w = 0; w < nwords; ++w) {
+    const uint32_t live = __shfl_sync(0xffffffffu, live_bits[w], 0);
+    const uint32_t mid = __shfl_sync(0xffffffffu, mid_bits[w], 0);
+    const uint32_t lo = __shfl_sync(0xffffffffu, lo_bits[w], 0);
+    for (uint32_t bits = live; bits != 0; bits &= bits - 1) {
+      const int xp = planes_of(mid, lo, __ffs(bits) - 1);
+      hopper::mbar_wait(&full[stage], phase);
+      const uint32_t base = hopper::smem_u32(smem + stage * C::kStageBytes);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) part[i] = 0.0f;
-    hopper::wgmma_fence();
+      for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int order = 2; order >= 0; --order) {
+      for (int order = 2; order >= 0; --order) {
 #pragma unroll
-      for (int j = 0; j < kPA; ++j) {
-        const int i = order - j;  // the term s_i a_j, i + j == order
-        if (i < 0 || !((xp >> i) & 1)) continue;
+        for (int j = 0; j < kPA; ++j) {
+          const int i = order - j;  // the term s_i a_j, i + j == order
+          if (i < 0 || !((xp >> i) & 1)) continue;
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t da = hopper::desc_sw128(
-              base + i * TILE + c * (TILE / 2) + kk * 32, 16, 1024);
-          const uint64_t db = hopper::desc_sw128(
-              base + (X_PLANES + j) * TILE + kk * 32, 16, 1024);
-          hopper::wgmma_m64n128k16_ss<0>(part, da, db);
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t da = hopper::desc_sw128(
+                base + i * TILE + c * (TILE / 2) + kk * 32, 16, 1024);
+            const uint64_t db = hopper::desc_sw128(
+                base + (X_PLANES + j) * TILE + kk * 32, 16, 1024);
+            hopper::wgmma_m64n128k16_ss<0>(part, da, db);
+          }
         }
       }
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(part);
-    if (tid == 0) hopper::mbar_arrive(&empty[stage]);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part);
+      if (tid == 0) hopper::mbar_arrive(&empty[stage]);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-    if (++stage == C::kStages) {
-      stage = 0;
-      phase ^= 1;
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
 
@@ -273,23 +332,25 @@ count_mm_kernel(const __grid_constant__ CUtensorMap tx,
 
 bool bad_shape(int m, int k, int n, int planes_a) {
   return m <= 0 || k < 0 || n <= 0 || m % BM || k % BK || n % BN ||
-         n / BN > 65535 || (planes_a != 1 && planes_a != 3);
+         n / BN > 65535 || (planes_a != 1 && planes_a != 3) ||
+         Cfg<1>::smem(k) > SMEM_MAX || Cfg<3>::smem(k) > SMEM_MAX;
 }
 
 template <int kPA, bool kMasked>
-int run(const float* s, __nv_bfloat16* s_planes, int32_t* x_live,
+int run(const float* s, __nv_bfloat16* s_planes, int32_t* x_flags,
         const __nv_bfloat16* a_planes, float* out, const int32_t* smask,
-        const int32_t* amask, int m, int k, int n, cudaStream_t stream) {
+        const int32_t* amask, unsigned long long* tally, int m, int k, int n,
+        cudaStream_t stream) {
   if (k == 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * m * n,
                                           stream);
   const int nbm = m / BM, nbk = k / BK;
   cudaError_t err = cudaMemsetAsync(
-      x_live, 0, sizeof(int32_t) * 2 * nbm * nbk, stream);
+      x_flags, 0, sizeof(int32_t) * 3 * nbm * nbk, stream);
   if (err != cudaSuccess) return (int)err;
   const long long n4 = (long long)m * k / 4;
   const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
   split3_kernel<<<blocks, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(s), s_planes, x_live, k, n4, nbk, nbm);
+      reinterpret_cast<const float4*>(s), s_planes, x_flags, k, n4, nbk, nbm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -302,29 +363,30 @@ int run(const float* s, __nv_bfloat16* s_planes, int32_t* x_live,
       !hopper::make_map_bf16(&ta, a_planes, 3, adims, astr, BN))
     return (int)cudaErrorInvalidValue;
 
-  using C = Cfg<kPA>;
+  const size_t smem = Cfg<kPA>::smem(k);
   err = cudaFuncSetAttribute(count_mm_kernel<kPA, kMasked>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::kSmem);
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(m / BM, n / BN);
-  count_mm_kernel<kPA, kMasked><<<grid, THREADS, C::kSmem, stream>>>(
-      tx, ta, out, x_live, smask, amask, m, k, n);
+  count_mm_kernel<kPA, kMasked><<<grid, THREADS, smem, stream>>>(
+      tx, ta, out, x_flags, smask, amask, tally, m, k, n);
   return (int)cudaGetLastError();
 }
 
 template <bool kMasked>
-int dispatch(const float* s, void* s_planes, int32_t* x_live,
+int dispatch(const float* s, void* s_planes, int32_t* x_flags,
              const void* a_planes, int planes_a, float* out,
-             const int32_t* smask, const int32_t* amask, int m, int k, int n,
-             cudaStream_t stream) {
+             const int32_t* smask, const int32_t* amask, long long* tally,
+             int m, int k, int n, cudaStream_t stream) {
   if (bad_shape(m, k, n, planes_a)) return (int)cudaErrorInvalidValue;
   auto* sp = static_cast<__nv_bfloat16*>(s_planes);
   auto* ap = static_cast<const __nv_bfloat16*>(a_planes);
+  auto* t = reinterpret_cast<unsigned long long*>(tally);
   if (planes_a == 1)
-    return run<1, kMasked>(s, sp, x_live, ap, out, smask, amask, m, k, n,
-                           stream);
-  return run<3, kMasked>(s, sp, x_live, ap, out, smask, amask, m, k, n,
+    return run<1, kMasked>(s, sp, x_flags, ap, out, smask, amask, t, m, k,
+                           n, stream);
+  return run<3, kMasked>(s, sp, x_flags, ap, out, smask, amask, t, m, k, n,
                          stream);
 }
 
@@ -340,25 +402,29 @@ void count_mm_block_shape(int* shape) {
 }
 
 // out[m, n] = s[m, k] @ a[k, n]: s row-major f32; s_planes scratch for
-// 3 x m x k bf16 and x_live for 2 x (m / BM) x (k / BK) int32; a_planes
+// 3 x m x k bf16 and x_flags for 3 x (m / BM) x (k / BK) int32; a_planes
 // the right operand's planes_a (1 or 3) bf16 planes, each n x k (a
 // transposed, k contiguous); out row-major f32; all on the device.
 // Returns the launches' cudaError_t (0 on success).
-int count_mm(const float* s, void* s_planes, int32_t* x_live,
+int count_mm(const float* s, void* s_planes, int32_t* x_flags,
              const void* a_planes, int planes_a, float* out, int m, int k,
              int n, cudaStream_t stream) {
-  return dispatch<false>(s, s_planes, x_live, a_planes, planes_a, out,
-                         nullptr, nullptr, m, k, n, stream);
+  return dispatch<false>(s, s_planes, x_flags, a_planes, planes_a, out,
+                         nullptr, nullptr, nullptr, m, k, n, stream);
 }
 
-// As count_mm, skipping every (k-step, output tile) pair whose
-// smask[m / BM, k / BK] or amask[k / BK, n / BN] entry (int32) is zero.
-int count_mm_masked(const float* s, void* s_planes, int32_t* x_live,
+// As count_mm, skipping every (k-step, output tile) pair whose slab of s
+// (m / BM, k / BK) holds no nonzero entry, or whose amask[k / BK, n / BN]
+// entry (int32) is zero, or, where smask is not null, whose
+// smask[m / BM, k / BK] entry is zero.  Where tally is not null, its two
+// int64 counters gain the live pairs and the tiles that had none.
+int count_mm_masked(const float* s, void* s_planes, int32_t* x_flags,
                     const void* a_planes, int planes_a, float* out,
-                    const int32_t* smask, const int32_t* amask, int m, int k,
-                    int n, cudaStream_t stream) {
-  return dispatch<true>(s, s_planes, x_live, a_planes, planes_a, out, smask,
-                        amask, m, k, n, stream);
+                    const int32_t* smask, const int32_t* amask,
+                    long long* tally, int m, int k, int n,
+                    cudaStream_t stream) {
+  return dispatch<true>(s, s_planes, x_flags, a_planes, planes_a, out, smask,
+                        amask, tally, m, k, n, stream);
 }
 
 }  // extern "C"

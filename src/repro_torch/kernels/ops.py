@@ -11,8 +11,9 @@ granularity (see ``repro_torch.core.tiles``) -- they dispatch to the
 tile-skipping kernel: the grid is coarsened to the CUDA kernel's
 ``(BK, BN)`` block grid (not to the Pallas kernel's blocks), the left
 operand's slab mask is derived from the operand itself (frontier slabs go
-all-identity as the BFS/SSSP/BC levels saturate), and the kernel skips
-every (slab, block) pair whose contribution is the identity.
+all-identity as the BFS/SSSP/BC levels saturate; the count kernel's split
+finds its own as it splits the operand), and the kernel skips every
+(slab, block) pair whose contribution is the identity.
 
 ``*_against(a, ...)`` prepares a right operand that stays fixed across many
 products (one per BFS level, relax pass or BC level): it is padded and its
@@ -101,7 +102,9 @@ def _against(kern, name: str, identity: float, nonidentity,
              a: torch.Tensor, amask: torch.Tensor | None, tile: int,
              prepare=None, narrow=None):
     """``x -> name(x, a)`` through ``kern``'s dense or masked entry point,
-    with ``a`` padded and ``amask`` coarsened to the kernel's blocks once.
+    with ``a`` padded and ``amask`` coarsened to the kernel's blocks once;
+    ``nonidentity=None`` leaves the left operand's slab mask to the masked
+    entry point.
     ``prepare(ap)``, where given, makes once from the padded ``a`` the extra
     keyword arguments that every call of the entry points gets;
     ``narrow(ap, am)`` the mask that the masked entry point reads, from the
@@ -124,8 +127,9 @@ def _against(kern, name: str, identity: float, nonidentity,
         if am is None:
             out = dense(xp, ap, **kw)
         else:
-            out = masked(xp, ap, _slab_mask(xp, bm, bk, nonidentity), am,
-                         **kw)
+            xm = (None if nonidentity is None
+                  else _slab_mask(xp, bm, bk, nonidentity))
+            out = masked(xp, ap, xm, am, **kw)
         return out if out.shape == (m, n) else out[:m, :n]
 
     return product
@@ -172,8 +176,9 @@ def _minplus_exact(wp: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
 def count_mm_against(a: torch.Tensor, amask: torch.Tensor | None = None,
                      tile: int = 128):
     """``s -> count_mm(s, a, amask, tile)`` for a right operand reused
-    across the BC levels."""
-    return _against(_count, "count_mm", 0.0, _nonzero, a, amask, tile,
+    across the BC levels.  The masked kernel takes the slabs of ``s`` that
+    hold a nonzero entry from its own split of ``s``."""
+    return _against(_count, "count_mm", 0.0, None, a, amask, tile,
                     prepare=_count_planes)
 
 

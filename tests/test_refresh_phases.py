@@ -256,3 +256,29 @@ def test_last_records_give_each_refresh_and_commit_its_fields():
     assert commits == [{"putv": 1, "remv": 2, "pute": 3, "reme": 4},
                        {"putv": 0, "remv": 6, "pute": 0, "reme": 0}]
     assert rp.last_records([], "commit", 3, rp.COMMIT_FIELDS) == []
+
+
+def test_live_pairs_read_the_masked_kernels_tallies():
+    """``kernel_live_pair_share`` is the live (k-step, tile) pairs over the
+    pairs launched, ``zero_tiles`` the tiles with no live k-step per
+    product; a slice with no masked product reads ``None``.  On the CPU no
+    launch adds to the tallies, and a reset reads zeros."""
+    tally = {"launches": 4, "pairs": 4 * 128 * 128 * 256,
+             "live_pairs": 838861, "zero_tiles": 40000}
+    got = rp.live_pairs(tally)
+    assert got["masked_products"] == 4
+    assert got["kernel_live_pair_share"] == pytest.approx(
+        838861 / (4 * 128 * 128 * 256))
+    assert got["zero_tiles"] == 10000
+    assert rp.live_pairs(dict.fromkeys(tally, 0)) == {
+        "masked_products": 0, "kernel_live_pair_share": None,
+        "zero_tiles": None}
+
+    import torch
+    from repro_torch.kernels import count_mm
+
+    count_mm.reset_pairs()
+    s, a = torch.ones((128, 64)), torch.ones((64, 128))
+    count_mm.count_mm_masked(s, a, None, torch.ones((1, 1), dtype=torch.int32))
+    assert count_mm.read_pairs() == dict.fromkeys(tally, 0)
+    assert rp.live_pairs(count_mm.read_pairs())["zero_tiles"] is None

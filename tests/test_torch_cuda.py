@@ -450,6 +450,62 @@ def test_cuda_count_mm_masked_rows_are_independent(cuda_device):
                                rtol=1e-5, atol=1e-5)
 
 
+# (case, k): what the masked count kernel's bitmap of live k-steps holds
+BITMAP = [("all dead", 1024), ("first and last", 1024),
+          ("partial word", 40 * 64), ("stricter smask", 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,k", BITMAP)
+def test_cuda_count_mm_masked_bitmap_cases(cuda_device, case, k):
+    """The masked kernel reads its masks once per CTA into a bitmap of
+    live k-steps (its left mask the split's own flag, ANDed with a given
+    ``smask``): bit-identical to the masked plain version on integer
+    counts (mid pieces included) with every pair dead, with live k-steps
+    only at the first and the last, with 40 k-steps (a partial bitmap
+    word), and under an ``smask`` stricter than the slabs' own.  The
+    kernel's tally counts the live pairs and the tiles with none."""
+    rng = np.random.default_rng(k + len(case))
+    m, n = 256, 384
+    nbm, nbk, nbn = m // 128, k // 64, n // 128
+    f = rng.integers(0, 600, (m, k)).astype(np.float32)
+    f[rng.random((m, k)) < 0.7] = 0.0
+    f[:128, 128:320] = 0.0                   # dead slabs in row block 0
+    a = (rng.random((k, n)) < 0.1).astype(np.float32)
+    am = (rng.random((nbk, nbn)) < 0.6).astype(np.int32)
+    sm = None
+    if case == "all dead":
+        f[:128] = 0.0
+        am[:] = 0
+    elif case == "first and last":
+        am[:] = 0
+        am[0] = am[-1] = 1
+    elif case == "stricter smask":
+        sm = (rng.random((nbm, nbk)) < 0.5).astype(np.int32)
+    fc, ac = (torch.tensor(t, device=cuda_device) for t in (f, a))
+    amc = torch.tensor(am, device=cuda_device)
+    smc = None if sm is None else torch.tensor(sm, device=cuda_device)
+    own = tcount.split_flags(fc)[2]
+    assert torch.equal(own, tops._slab_mask(fc, 128, 64, tops._nonzero))
+    live = own.cpu().numpy() if sm is None else own.cpu().numpy() & sm
+    pairs = live[:, :, None].astype(bool) & am[None].astype(bool)
+    tcount.reset_pairs()
+    got = tcount.count_mm_masked(fc, ac, smc, amc)
+    tally = tcount.read_pairs()
+    exp = tcount.count_mm_masked_plain(
+        fc, ac, own if smc is None else smc, amc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+    if case == "all dead":
+        assert not got.any()
+    elif case == "partial word":
+        assert np.array_equal(got.cpu().numpy(), (f @ (
+            a * np.repeat(np.repeat(am, 64, 0), 128, 1))).astype(np.float32))
+    assert tally == {"launches": 1, "pairs": nbm * nbk * nbn,
+                     "live_pairs": int(pairs.sum()),
+                     "zero_tiles": int((~pairs.any(axis=1)).sum())}
+
+
 # (b, hq, hkv, sq, skv, d, causal, window)
 FLASH = [
     (1, 4, 4, 32, 32, 16, True, None),      # MHA square

@@ -201,3 +201,51 @@ def test_plain_oracles_match_reference():
                       (jref.minplus_mm_ref, tref.minplus_mm_ref, d)):
         exp = np.asarray(jf(jnp.asarray(x), jnp.asarray(a)))
         assert np.array_equal(tf(_t(x), _t(a)).numpy(), exp), jf.__name__
+
+
+# (s, k, n, mask): ragged shapes on both sides of the kernel's blocks, the
+# occupancy grid all set, all clear, or the adjacency's own
+AGAINST = [(70, 200, 130, "all live"), (70, 200, 130, "all dead"),
+           (129, 65, 257, "occupancy"), (1, 513, 64, "all live"),
+           (200, 64, 1, "occupancy"), (33, 300, 129, "all dead")]
+
+
+@pytest.mark.parametrize("s,k,n,mask", AGAINST)
+def test_count_mm_against_masked_equals_the_product(s, k, n, mask):
+    """``ops.count_mm_against(a, amask=...)`` hands the masked entry point
+    no left mask (the kernel's split finds it): on the CPU the product
+    still equals ``x @ a`` on integers, with whole row and column blocks
+    of zeros in ``x``, and is zeros where the mask is all dead."""
+    rng = np.random.default_rng(s * k + n)
+    x = rng.integers(0, 4, (s, k)).astype(np.float32)
+    x[:, k // 3: 2 * k // 3] = 0.0
+    x[s // 2:] *= -1.0                       # some -0 entries
+    a = (rng.random((k, n)) < 0.2).astype(np.float32)
+    tile = 64
+    occ = _tile_occ(a, tile, False)
+    amask = {"all live": np.ones_like(occ), "all dead": np.zeros_like(occ),
+             "occupancy": occ}[mask]
+    before = dict(tcount.LAUNCHES)
+    got = tops.count_mm_against(_t(a), amask=_t(amask), tile=tile)(_t(x))
+    exp = np.zeros((s, n), np.float32) if mask == "all dead" else x @ a
+    assert got.shape == (s, n)
+    assert np.array_equal(got.numpy(), exp)
+    assert tcount.LAUNCHES == before          # the plain version: no launch
+
+
+def test_count_mm_masked_without_a_left_mask_takes_the_slabs_own():
+    """``count_mm_masked(s, a, None, amask)`` equals the masked plain
+    version under ``split_flags(s)[2]``, which is ``ops._slab_mask``."""
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 3, (256, 192)).astype(np.float32)
+    s[:128, 64:128] = 0.0
+    s[128:, :64] = -0.0
+    a = (rng.random((192, 128)) < 0.3).astype(np.float32)
+    am = torch.ones((3, 1), dtype=torch.int32)
+    own = tcount.split_flags(_t(s))[2]
+    assert torch.equal(own, tops._slab_mask(_t(s), 128, 64, tops._nonzero))
+    assert own[0, 1] == 0 and own[1, 0] == 0
+    got = tcount.count_mm_masked(_t(s), _t(a), None, am)
+    assert torch.equal(got, tcount.count_mm_masked_plain(_t(s), _t(a), own,
+                                                         am))
+    assert np.array_equal(got.numpy(), s @ a)

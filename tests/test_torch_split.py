@@ -21,6 +21,7 @@ import torch
 import repro.kernels.ops as jops
 import repro_torch.kernels.count_mm as tcount
 import repro_torch.kernels.flash_attention as tflash
+import repro_torch.kernels.ops as tops
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -100,6 +101,64 @@ def test_split3_of_subnormals():
     err = np.abs((hi.astype(np.float64) + mid + lo) - off_grid)
     assert (err <= 2.0 ** -134).all()
     assert ((hi + mid + lo) * np.sign(off_grid) >= 0).all()
+
+
+def _slab_any(x):
+    """int32 [m / 128, k / 64]: 1 where the (128 x 64) slab of ``x`` has a
+    nonzero entry (the kernel's slab grid)."""
+    return tops._slab_mask(x, tcount.BM, tcount.BK, lambda t: t != 0)
+
+
+def _operand(kind):
+    """A [256, 320] operand (2 x 5 slabs) of ``kind``'s values, scattered
+    with zeros, with one slab of +0 and one of -0 alone."""
+    rng = np.random.default_rng(len(kind) + 1)
+    if kind == "subnormals":   # on bf16's grid and off it, both signs
+        vals = _f32(rng.integers(1, 2**23, 4096, dtype=np.uint32))
+        vals[::3] = _f32(rng.integers(1, 128, 1366, dtype=np.uint32) << 16)
+        vals[1::2] *= -1
+    elif kind == "floats":
+        vals = np.concatenate([_values("normals"), _values("negatives"),
+                               _values("tiny normals")])
+    else:
+        vals = _values(kind)
+    x = rng.choice(vals, (256, 320)).astype(np.float32)
+    x[rng.random(x.shape) < 0.5] = 0.0
+    x[:128, 64:128] = 0.0
+    x[128:, 192:256] = -0.0
+    x[:128, 256:] = 0.0
+    x[5, 300] = vals[vals != 0][0] if vals.any() else 0.0  # a lone entry
+    return torch.tensor(x)
+
+
+@pytest.mark.parametrize("kind", ["integers", "floats", "zeros",
+                                  "subnormals"])
+def test_split_flags_are_the_slab_mask_and_the_pieces(kind):
+    """``split_flags``, the plain twin of the split kernel's per-slab
+    flags: the third is ``ops._slab_mask(x, 128, 64, _nonzero)`` (-0 is no
+    entry), the first and second say which slabs have a nonzero mid and
+    lo piece.  The kernel reads them off the f32 remainders, so below
+    bf16's least subnormal they may also be set for a piece that is zero
+    (a mid of -0, a lo that rounds to zero): never clear where a piece is
+    not."""
+    x = _operand(kind)
+    flags = tcount.split_flags(x)
+    assert flags.dtype == torch.int32 and tuple(flags.shape) == (3, 2, 5)
+    any_ = tops._slab_mask(x, tcount.BM, tcount.BK, tops._nonzero)
+    assert torch.equal(flags[2], any_)
+    if kind != "zeros":
+        assert flags[2, 0, 1] == 0 and flags[2, 1, 3] == 0
+        assert flags[2, 0, 4] == 1
+    for flag, piece in zip(flags[:2], tcount.split3(x)[1:]):
+        held = _slab_any(piece.float())
+        assert ((flag - held) >= 0).all()
+        if kind != "subnormals":
+            assert torch.equal(flag, held)
+    if kind == "integers":    # counts below 2^24: mid only above 255
+        assert torch.equal(flags[0], _slab_any(x * (x > 255)))
+    # where no piece but hi is set, the slab still holds its entries
+    assert ((flags[2] - flags[0]) >= 0).all() and (
+        (flags[2] - flags[1]) >= 0).all()
 
 
 @pytest.mark.parametrize("kind,planes", [("adjacency", 1), ("integers", 3),

@@ -19,7 +19,11 @@ grid's blocks, in the refresh's vertex order, that hold an entry; the dead
 vertices; the source rows revived, restarted cold and reused whole) and
 each commit's ops by kind (``COMMIT_FIELDS``) come from the ``bc_scores``
 and ``commit`` records of a tracer the tool attaches to the service and
-its scheduler.  Prints one JSON object last.
+its scheduler.  The masked count kernel's own tallies
+(``repro_torch.kernels.count_mm.read_pairs``), zeroed before each slice
+and read after it, give the share of the (k-step, tile) pairs launched
+that it found live (``kernel_live_pair_share``) and its tiles with no
+live k-step per product (``zero_tiles``).  Prints one JSON object last.
 
 The benchmark's ``Trace`` leaves the program's ``record_function`` ranges
 out; this tool reads them from the same profiler events (``spans_of``).
@@ -207,6 +211,17 @@ def coverage(trace, spans) -> float:
     return inside / trace.busy_s if trace.busy_s else 0.0
 
 
+def live_pairs(tally) -> dict:
+    """``kernel_live_pair_share`` and ``zero_tiles`` per product from the
+    masked count kernel's tallies over one slice (``read_pairs``), with
+    the number of its products; ``None`` where none ran."""
+    n = tally["launches"]
+    return {"masked_products": n,
+            "kernel_live_pair_share": (tally["live_pairs"] / tally["pairs"]
+                                       if tally["pairs"] else None),
+            "zero_tiles": tally["zero_tiles"] / n if n else None}
+
+
 def read_slice(sl, read=None):
     """A closed ``graphbench.profiling.Slice``'s ``Trace`` (by ``read``,
     ``Slice.read`` by default) and the program's spans in it."""
@@ -221,6 +236,7 @@ def cold_refreshes(cell, seed: int, count: int) -> list:
 
     from graphbench import graphs, profiling, system, traffic
     from repro_torch.engine import GraphService
+    from repro_torch.kernels import count_mm
     from repro_torch.obs import Telemetry
 
     cfg = cell.config
@@ -238,11 +254,13 @@ def cold_refreshes(cell, seed: int, count: int) -> list:
         tel = Telemetry.make(hlo=False, profile=False)
         fresh = GraphService(state, telemetry=tel, **{
             k: int(v) for k, v in cfg["service"].items()})
+        count_mm.reset_pairs()
         with profiling.Slice() as sl:
             fresh.bc_scores()
         trace, spans = read_slice(sl)
         assert fresh.bc_scores_stats["full"] == 1
         row = phase_split(spans)
+        row.update(live_pairs(count_mm.read_pairs()))
         (fields,) = last_records(tel.tracer.records, "bc_scores", 1,
                                  RECORD_FIELDS)
         row.update(fields)
@@ -263,6 +281,7 @@ def main() -> int:
     import torch
 
     from graphbench import drivers, harness, profiling, spec
+    from repro_torch.kernels import count_mm
     from repro_torch.obs import Telemetry
 
     if not torch.cuda.is_available():
@@ -272,11 +291,17 @@ def main() -> int:
                           text=True).stdout.strip()
     cell = spec.resolve(ROOT, args.workload)
     steps = int(cell.traffic["trace_steps"])
-    slices, records, runs = [], [], []
-    read = profiling.Slice.read
+    slices, records, runs, pairs = [], [], [], []
+    read, enter = profiling.Slice.read, profiling.Slice.__enter__
     tel = Telemetry.make(hlo=False, profile=False)
 
+    def zeroed(self):
+        # the kernel's tallies count from the slice's start
+        count_mm.reset_pairs()
+        return enter(self)
+
     def keep(self):
+        pairs.append(live_pairs(count_mm.read_pairs()))
         slices.append(read_slice(self, read))
         records.append({
             "refreshes": last_records(tel.tracer.records, "bc_scores",
@@ -295,10 +320,10 @@ def main() -> int:
 
     kind = cell.traffic["kind"]
     drive = drivers.DRIVERS[kind]
-    profiling.Slice.read = keep
+    profiling.Slice.read, profiling.Slice.__enter__ = keep, zeroed
     drivers.DRIVERS[kind] = traced
     out = harness.run_cell(cell, args.seed, args.seconds, trace=True)
-    profiling.Slice.read = read
+    profiling.Slice.read, profiling.Slice.__enter__ = read, enter
     drivers.DRIVERS[kind] = drive
     trace, spans = slices[0]             # the window's slice
     result = {
@@ -309,6 +334,7 @@ def main() -> int:
         "busy_ms": trace.busy_s * 1e3, "window_ms": trace.window_s * 1e3,
         "coverage": coverage(trace, spans),
         "delta": phase_split(spans),
+        **pairs[0],
         **records[0],
         "idle_by_span": idle_by_span(trace, spans),
         "idle_gaps": idle_gaps(trace, spans),
