@@ -64,8 +64,8 @@ import torch
 from repro_torch.core import queries
 from repro_torch.core.graph_state import GraphState
 from repro_torch.core.snapshot import ScanStats
-from repro_torch.core.tiles import TileView, dense_views_from_tiles, \
-    refresh_tile_view
+from repro_torch.core.tiles import TileView, build_tile_view, \
+    dense_views_from_tiles
 from repro_torch.obs import AdaptiveThresholds, CounterStruct, ModeCounters, \
     Telemetry, block_until_ready
 from repro_torch.obs.trace import HOST_READ, child_span, host_read, \
@@ -765,22 +765,20 @@ class GraphService(BaseGraphService):
     # --------------------------- batched analytics ------------------------
 
     def tile_view(self) -> TileView:
-        """Blocked adjacency view of the latest version, kept fresh
-        incrementally: each call re-derives only the tile rows the ring's
-        dirty sets say moved since the last call (full rebuild when the
-        span left the ring window or the vertex table grew).  The refresh
-        writes into the previous view in place; the service holds only the
-        returned one."""
+        """Blocked adjacency view of the latest version, built in full
+        (``build_tile_view``) the first time a version is asked for and
+        cached until a commit moves the ring.  The previous version's view
+        is dropped before the build, so that the allocator can reuse its
+        buffers where no caller holds it; a view a caller holds is never
+        written."""
         entry = self.ring.latest
         if self._tiles is not None and self._tiles_version == entry.version:
             return self._tiles
-        dirty = None
-        if self._tiles is not None:
-            dirty = self.ring.dirty_between(self._tiles_version, entry.version)
+        self._tiles = None
         tracer = self.telemetry.tracer if self.telemetry else None
         with maybe_span(tracer, "tile_refresh", service=self._service_name,
-                        full=(self._tiles is None or dirty is None)):
-            self._tiles = refresh_tile_view(entry.state, self._tiles, dirty)
+                        full=True):
+            self._tiles = build_tile_view(entry.state)
         self._tiles_version = entry.version
         return self._tiles
 
@@ -809,7 +807,9 @@ class GraphService(BaseGraphService):
         ``host_reads``, and, where it swept, the fields of
         ``_sweep_fields``, read in one ``host_read`` and only for a
         tracer's record) whose children are its phases: ``bc_scores.plan``,
-        ``tile_refresh``, ``bc_scores.operands``, ``bc_scores.forward`` /
+        ``tile_refresh`` (the tile view, built in full at a new version),
+        ``bc_scores.views``, ``bc_scores.operands`` (opened in
+        ``queries.bc_batched_dense``), ``bc_scores.forward`` /
         ``bc_scores.backward`` (one ``*_level`` child per counting product,
         opened in ``queries.bc_sweep_ops``) and ``bc_scores.reduce``.  Every
         device-to-host read of a refresh goes through ``obs.host_read``.
@@ -860,7 +860,7 @@ class GraphService(BaseGraphService):
             _set_counts(sp)
             return slot["scores"], entry.version
         view = self.tile_view()
-        with child_span("bc_scores.operands"):
+        with child_span("bc_scores.views"):
             # The sweeps run with the vertex axis in a hub-first order
             # (``queries.bc_vertex_order``), so that the products' block
             # masks skip the empty blocks; source row i is vertex order[i].

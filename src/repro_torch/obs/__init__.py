@@ -11,7 +11,8 @@
     with child spans for scheduler commits (``commit.apply``,
     ``commit.ring``), tile refreshes and each collect of the PG-Cn loop,
     and every ``bc_scores()`` a ``bc_scores`` record with its phases
-    (plan, tile refresh, operands, forward and backward levels, reduce)
+    (plan, tile refresh, views, operands, forward and backward levels,
+    reduce)
     and its device-to-host reads (``host_read``).  While
     ``torch.profiler`` records, each span is also a ``record_function``
     range of its name, with or without telemetry;

@@ -35,9 +35,9 @@ import torch
 
 from repro_torch.core.graph_state import INF, NOKEY, GraphState, \
     live_edge_mask, scatter_min_dense
-from repro_torch.core.tiles import TILE, TileView, _tile_counts, \
-    dirty_row_windows
+from repro_torch.core.tiles import TILE, TileView, _tile_counts
 from repro_torch.obs import CounterStruct
+from repro_torch.obs.trace import host_read
 
 from .dist import DistGroup, DistMesh
 from .group import GraphMesh, as_graph_mesh
@@ -193,6 +193,33 @@ class RefreshStats(CounterStruct):
 refresh_stats = RefreshStats()
 
 
+def _dirty_tile_rows(dirty: torch.Tensor, nt: int, tile: int) -> torch.Tensor:
+    pad = nt * tile - dirty.shape[0]
+    return torch.cat([dirty, dirty.new_zeros(pad)]).view(nt, tile).any(dim=1)
+
+
+def dirty_row_windows(state: GraphState, dirty: torch.Tensor, nt: int,
+                      tile: int):
+    """Host-side refresh plan from a dirty-vertex set.
+
+    ``None`` means more than half the tile rows moved -- a full rebuild is
+    cheaper; otherwise the (possibly empty) list of ``(row, lo, hi)``
+    segments of the sorted edge table to re-derive, one per dirty tile row.
+    """
+    rows = host_read(torch.nonzero, _dirty_tile_rows(dirty, nt, tile)).flatten()
+    if rows.numel() > nt // 2:
+        return None
+    if rows.numel() == 0:
+        return []
+    bounds = rows.to(torch.int32) * tile
+    los = torch.searchsorted(state.esrc, bounds)
+    his = torch.searchsorted(state.esrc, bounds + (tile - 1), right=True)
+    return [(int(r), int(lo), int(hi)) for r, lo, hi in
+            zip(host_read(torch.Tensor.tolist, rows),
+                host_read(torch.Tensor.tolist, los),
+                host_read(torch.Tensor.tolist, his))]
+
+
 def _batched_plan(plan, rows_per_shard: int):
     """Group the ``(row, lo, hi)`` segments by owning rank, in chunks of up
     to ``REFRESH_BATCH`` rows: ``[(rank, [(row, lo, hi), ...]), ...]``."""
@@ -207,9 +234,10 @@ def _batched_plan(plan, rows_per_shard: int):
 def _refresh_rows(state: GraphState, w_band: torch.Tensor,
                   occ_band: torch.Tensor, rank: int, segs, tile: int) -> None:
     """Re-derive the tile rows ``segs`` of rank ``rank``'s band in place,
-    all in one scatter: row ``k`` of the batch scatters its edge segment
-    (``row_window_slab``'s derivation) into slab ``k`` of one
-    ``[K * tile, Vp]`` buffer."""
+    all in one scatter: row ``k`` of the batch scatters the live edges of
+    its segment of the sorted edge table into slab ``k`` of one
+    ``[K * tile, Vp]`` buffer (scatter-min is order-free, so each slab
+    equals the matching rows of a full build)."""
     rows, nt = occ_band.shape
     vp = w_band.shape[1]
     dev = w_band.device
@@ -240,14 +268,14 @@ def refresh_sharded_view(state: GraphState, prev: ShardedTileView | None,
                          tile: int | None = None) -> ShardedTileView:
     """Incremental rebuild from a dirty-vertex set (full rebuild fallback).
 
-    The same host-side strategy pick as ``core.tiles.refresh_tile_view``:
-    no dirty tile row returns ``prev``; a few dirty rows are re-derived by
-    their owning ranks (up to ``REFRESH_BATCH`` rows of one rank per
-    dispatch); more than half the rows moved -- or a resize, a mesh or tile
-    change, or no dirty info -- rebuilds from scratch.  The row path writes
-    into ``prev``'s bands IN PLACE (where the reference donates them): the
-    call CONSUMES ``prev``.  Tallies accumulate in ``refresh_stats``: the
-    rows and dispatches of the bands this process holds.
+    The host-side plan is ``dirty_row_windows``'s: no dirty tile row
+    returns ``prev``; a few dirty rows are re-derived by their owning ranks
+    (up to ``REFRESH_BATCH`` rows of one rank per dispatch); more than half
+    the rows moved -- or a resize, a mesh or tile change, or no dirty info
+    -- rebuilds from scratch.  The row path writes into ``prev``'s bands
+    IN PLACE (where the reference donates them): the call CONSUMES
+    ``prev``.  Tallies accumulate in ``refresh_stats``: the rows and
+    dispatches of the bands this process holds.
     """
     if prev is not None:
         mesh = mesh or prev.mesh

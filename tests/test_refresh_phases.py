@@ -34,6 +34,8 @@ def _refresh(t0: float, forward_levels: int, backward_levels: int):
     t += 1 * MS
     spans.append(Span(t, t + 1 * MS, "tile_refresh", 0.5 * MS))
     t += 1 * MS
+    spans.append(Span(t, t + 1 * MS, "bc_scores.views", 0.25 * MS))
+    t += 1 * MS
     spans.append(Span(t, t + 1 * MS, "bc_scores.operands", 0.5 * MS))
     t += 1 * MS
     f0 = t
@@ -58,8 +60,8 @@ def _refresh(t0: float, forward_levels: int, backward_levels: int):
     spans.append(Span(t, t + 0.5 * MS, "bc_scores.reduce", 0.0))
     t += 0.5 * MS
     device = sum(s.device_s for s in spans if s.name in (
-        "tile_refresh", "bc_scores.operands", "bc_scores.forward",
-        "bc_scores.backward"))
+        "tile_refresh", "bc_scores.views", "bc_scores.operands",
+        "bc_scores.forward", "bc_scores.backward"))
     spans.append(Span(t0, t, "bc_scores", device))
     return spans, t
 
@@ -120,8 +122,10 @@ def test_phase_split_per_refresh_that_swept_and_per_commit(key):
 
 def test_phase_split_reads_nothing_without_a_sweep():
     _, spans = _slice()
+    assert rp.phase_split(spans)["bc_scores.views_ms"] == pytest.approx(0.25)
     bare = [s for s in spans if not s.name.startswith("bc_scores.")]
     split = rp.phase_split(bare)
+    assert split["bc_scores.views_ms"] is None
     assert split["bc_scores.forward_ms"] is None
     assert split["forward_levels"] is None
     assert rp.phase_split([])["commit_wall_ms"] == 0.0

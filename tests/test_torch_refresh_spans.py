@@ -25,6 +25,7 @@ N, E = 256, 2048
 PARENTS = {
     "bc_scores.plan": "bc_scores",
     "tile_refresh": "bc_scores",
+    "bc_scores.views": "bc_scores",
     "bc_scores.operands": "bc_scores",
     "bc_scores.forward": "bc_scores",
     "bc_scores.forward_level": "bc_scores.forward",

@@ -170,3 +170,34 @@ def test_version_ring_pins_and_dirty_spans_match_reference():
         tring.pin(0)
     with pytest.raises(ValueError, match="reversed"):
         tring.dirty_between(5, 4)
+
+
+def test_tile_view_at_a_new_version_leaves_a_held_view_as_it_was():
+    """``tile_view()`` at a new version builds a view of its own: a view a
+    caller holds keeps its ``w`` and ``occ`` through a batch that dirties
+    one tile row, a batch with RemE and RemV, and a span of commits longer
+    than the ring, and each new view equals ``build_tile_view`` of the
+    latest state."""
+    from repro_torch.data import load_rmat_graph
+    svc = TService(load_rmat_graph(1024, 8192, seed=1, device="cpu"),
+                   ring_depth=4)
+    state = svc.ring.latest.state
+    assert state.vcap // tc.TILE >= 8
+    live = tc.live_edge_mask(state)
+    esrc, edst = state.esrc[live].tolist(), state.edst[live].tolist()
+
+    def check(batches):
+        held = svc.tile_view()
+        w, occ = held.w.clone(), held.occ.clone()
+        for ops in batches:
+            svc.submit_many(ops)
+            svc.flush()
+        view = svc.tile_view()
+        assert torch.equal(held.w, w) and torch.equal(held.occ, occ)
+        full = tc.build_tile_view(svc.ring.latest.state)
+        assert torch.equal(view.w, full.w) and torch.equal(view.occ, full.occ)
+        assert not torch.equal(view.w, w)  # the batches moved the view
+
+    check([[(jc.PUTE, 5, 700, 0.5)]])      # one source: one dirty tile row
+    check([[(jc.REME, esrc[0], edst[0]), (jc.REMV, edst[1])]])
+    check([[(jc.PUTE, 130 * k, 999 - k, 0.25)] for k in range(6)])

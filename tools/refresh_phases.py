@@ -7,13 +7,14 @@
 Runs the benchmark's cell once with ``--trace 1`` (``graphbench.harness``)
 and reads the whole profiled slice, not only the result line: the device
 time of each phase of a refresh (``bc_scores.plan``, ``tile_refresh``,
-``bc_scores.operands``, ``.forward``, ``.backward``, ``.reduce``) and of the
-commit (``commit.apply``, ``commit.ring``) per step, the share of the
-slice's busy time the ``commit`` and ``bc_scores`` ranges hold, every idle
-gap summed by the innermost span open when it began, and the slice's mean
-step against the traced run's window mean.  Then ``--cold`` cold (``full``)
-refreshes on fresh services over the cell's initial graph, read the same
-way, for the delta-against-cold comparison.  Each refresh's record fields
+``bc_scores.views``, ``.operands``, ``.forward``, ``.backward``,
+``.reduce``) and of the commit (``commit.apply``, ``commit.ring``) per
+step, the share of the slice's busy time the ``commit`` and ``bc_scores``
+ranges hold, every idle gap summed by the innermost span open when it
+began, and the slice's mean step against the traced run's window mean.
+Then ``--cold`` cold (``full``) refreshes on fresh services over the
+cell's initial graph, read the same way, for the delta-against-cold
+comparison.  Each refresh's record fields
 (``RECORD_FIELDS``: ``live_block_share``, the share of the occupancy
 grid's blocks, in the refresh's vertex order, that hold an entry; the dead
 vertices; the source rows revived, restarted cold and reused whole) and
@@ -41,8 +42,9 @@ from typing import NamedTuple
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
-REFRESH = ("bc_scores.plan", "tile_refresh", "bc_scores.operands",
-           "bc_scores.forward", "bc_scores.backward", "bc_scores.reduce")
+REFRESH = ("bc_scores.plan", "tile_refresh", "bc_scores.views",
+           "bc_scores.operands", "bc_scores.forward", "bc_scores.backward",
+           "bc_scores.reduce")
 COMMIT = ("commit.apply", "commit.ring")
 #: the program's range around one device-to-host read: a gap is named by
 #: the span that holds the read, not by the read
